@@ -1,0 +1,141 @@
+"""Fused LayerNorm -> multi-head self-attention -> output projection ->
+residual: y = x + W_o MHA(LN(x)) + b_o.
+
+Counterpart of ``mvldm_tpu/ops/fused_attn.py`` (forward only). The weights
+are the unpadded (C, H*D) q/k/v and (H*D, C) output projections; the TPU's
+128-lane ``pad_heads`` layout is not carried over.
+
+* :func:`fused_ln_self_attention_reference` — plain PyTorch, mirroring the
+  JAX decomposed path ``_attn_jnp``: f32 LayerNorm (eps 1e-6) rounded to the
+  input dtype, bias-free q/k/v projections in that dtype, f32-softmax
+  attention, the output projection accumulated in f32, + b_o + x.
+* :func:`fused_ln_self_attention` — CPU tensors take the plain version; CUDA
+  tensors take the kernels of ``csrc/fused_ln_attn.cu`` (LN + QKV GEMM with
+  the scale folded into q, then the flash kernel, then the out-projection
+  with the bias + residual epilogue), or raise.
+  ``fused_ln_self_attention.launches`` counts calls that launched them.
+
+``MAX_FUSED_CHANNEL_BYTES`` is the JAX package's gate (C * itemsize <= 1280),
+kept so both packages take the same path per layer (see
+``models/layers.self_attn_block``). It is a fact of the TPU's 16 MB VMEM;
+whether Hopper wants the same cut is for a later measurement.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .attention import _launch_flash, attention_reference
+
+MAX_FUSED_CHANNEL_BYTES = 640 * 2
+
+_SIGNATURES = {
+    "mvldm_ln_qkv": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
+    "mvldm_attn_out_proj": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p],
+}
+
+
+def use_fused(c: int, dtype: torch.dtype) -> bool:
+    """The JAX package's VMEM gate on channel bytes."""
+    return c * dtype.itemsize <= MAX_FUSED_CHANNEL_BYTES
+
+
+def _layer_norm(x: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
+    """LayerNorm in f32 (biased variance), f32 result."""
+    return F.layer_norm(x.float(), (x.shape[-1],), scale.float(), bias.float(), eps)
+
+
+def fused_ln_self_attention_reference(x, ln_scale, ln_bias, wq, wk, wv, wo, bo,
+                                      num_heads: int, head_dim: int,
+                                      eps: float = 1e-6) -> torch.Tensor:
+    """Plain version on (..., L, C) tokens; mirrors ``_attn_jnp``."""
+    shape = x.shape
+    dtype = x.dtype
+    x3 = x.reshape(-1, shape[-2], shape[-1])
+    n, l, _ = x3.shape
+    xf = x3.float()
+    xn = _layer_norm(x3, ln_scale, ln_bias, eps).to(dtype)
+
+    def heads(w):
+        return (xn @ w.to(dtype)).reshape(n, l, num_heads, head_dim).transpose(1, 2)
+
+    o = attention_reference(heads(wq), heads(wk), heads(wv),
+                            scale=1.0 / head_dim ** 0.5)
+    o = o.transpose(1, 2).reshape(n, l, num_heads * head_dim)
+    y = o.float() @ wo.to(dtype).float() + bo.float()
+    return (xf + y).to(dtype).reshape(shape)
+
+
+def _torch_layout(w: torch.Tensor, rows: int, cols: int, name: str) -> torch.Tensor:
+    """The kernels read a (rows, cols) operand from its transpose stored
+    row-major, the layout of a torch Linear weight (``linear.weight.t()``)."""
+    if w.shape != (rows, cols) or w.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: expected bf16 ({rows}, {cols}), got {w.dtype} {tuple(w.shape)}")
+    if not w.t().is_contiguous():
+        raise ValueError(f"{name}: expected the transpose of a contiguous tensor "
+                         "(a torch Linear weight's .t())")
+    return w
+
+
+def _vec(t: torch.Tensor, n: int, device, name: str) -> torch.Tensor:
+    if t.shape != (n,) or t.device != device:
+        raise ValueError(f"{name}: expected ({n},) on {device}")
+    return t.float().contiguous()
+
+
+def fused_ln_self_attention(x, ln_scale, ln_bias, wq, wk, wv, wo, bo,
+                            num_heads: int, head_dim: int,
+                            eps: float = 1e-6) -> torch.Tensor:
+    """x: (..., L, C) -> x + W_o MHA(LN(x)) + b_o.
+
+    wq/wk/wv: (C, H*D) and wo: (H*D, C) in the JAX layout. On the card they
+    must be the transposes of contiguous torch Linear weights."""
+    if x.device.type == "cpu":
+        return fused_ln_self_attention_reference(
+            x, ln_scale, ln_bias, wq, wk, wv, wo, bo, num_heads, head_dim, eps)
+    shape = x.shape
+    c = shape[-1]
+    l = shape[-2]
+    hd = num_heads * head_dim
+    if x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise ValueError("fused_ln_self_attention: x must be contiguous bfloat16")
+    if c % 8 or head_dim % 8:
+        raise ValueError("fused_ln_self_attention: C and head_dim must be multiples of 8")
+    for name, w in (("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo)):
+        if w.device != x.device:
+            raise ValueError(f"fused_ln_self_attention: {name} not on {x.device}")
+    wq, wk, wv = (_torch_layout(w, c, hd, n) for w, n in ((wq, "wq"), (wk, "wk"), (wv, "wv")))
+    wo = _torch_layout(wo, hd, c, "wo")
+    g = _vec(ln_scale, c, x.device, "ln_scale")
+    b = _vec(ln_bias, c, x.device, "ln_bias")
+    bo32 = _vec(bo, c, x.device, "bo")
+    m = x.numel() // c
+    n = m // l
+    lib = _build.load("fused_ln_attn", _SIGNATURES)
+    stream = _build.stream_ptr(x.device)
+    q = torch.empty((n, num_heads, l, head_dim), dtype=x.dtype, device=x.device)
+    k = torch.empty_like(q)
+    v = torch.empty_like(q)
+    _build.check(lib.mvldm_ln_qkv(
+        _build.ptr(x), _build.ptr(g), _build.ptr(b), _build.ptr(wq),
+        _build.ptr(wk), _build.ptr(wv), _build.ptr(q), _build.ptr(k),
+        _build.ptr(v), m, c, hd, num_heads, l, head_dim, float(eps),
+        1.0 / head_dim ** 0.5, stream), "mvldm_ln_qkv")
+    o = torch.empty_like(q)
+    _launch_flash(q, k, v, None, o, 1.0)  # scale already folded into q
+    y = torch.empty_like(x)
+    _build.check(lib.mvldm_attn_out_proj(
+        _build.ptr(o), _build.ptr(wo), _build.ptr(bo32), _build.ptr(x),
+        _build.ptr(y), m, c, hd, num_heads, l, head_dim, stream),
+        "mvldm_attn_out_proj")
+    fused_ln_self_attention.launches += 1
+    return y
+
+
+fused_ln_self_attention.launches = 0

@@ -1,0 +1,86 @@
+"""Fused LayerNorm -> GEGLU feed-forward -> residual:
+y = x + W2 (h * gelu_erf(g)) + b2 with [h | g] = LN(x) W1 + b1.
+
+Counterpart of ``mvldm_tpu/ops/fused_ff.py`` (forward only).
+
+* :func:`fused_ln_geglu_ff_reference` — plain PyTorch, mirroring ``_ff_jnp``:
+  f32 LayerNorm (eps 1e-6), LN(x) and act rounded to the input dtype before
+  each product, products accumulated in f32, exact-erf GELU.
+* :func:`fused_ln_geglu_ff` — CPU tensors take the plain version; CUDA
+  tensors take the two kernels of ``csrc/fused_ln_geglu_ff.cu`` (LN + W1
+  GEMM with the GEGLU epilogue, then W2 with the bias + residual epilogue),
+  or raise. ``fused_ln_geglu_ff.launches`` counts calls that launched them.
+
+The JAX gate C * itemsize <= 1280 applies (``fused_attn.use_fused``, used by
+``models/layers.ff_block``); at C = 1280 both packages take the decomposed
+path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .fused_attn import _layer_norm, _torch_layout, _vec
+
+_SIGNATURES = {
+    "mvldm_ff_geglu": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+    + [ctypes.c_float, ctypes.c_void_p],
+    "mvldm_ff_out": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+}
+
+
+def fused_ln_geglu_ff_reference(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                                eps: float = 1e-6) -> torch.Tensor:
+    """Plain version on (..., L, C) tokens; w1: (C, 8C), w2: (4C, C)."""
+    dtype = x.dtype
+    xf = x.float()
+    xn = _layer_norm(x, ln_scale, ln_bias, eps).to(dtype)
+    h = xn.float() @ w1.to(dtype).float() + b1.float()
+    a, gate = h.chunk(2, dim=-1)
+    act = (a * F.gelu(gate)).to(dtype)
+    o = act.float() @ w2.to(dtype).float() + b2.float()
+    return (xf + o).to(dtype)
+
+
+def fused_ln_geglu_ff(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                      eps: float = 1e-6) -> torch.Tensor:
+    """x: (..., L, C) -> x + FF(LN(x)). w1: (C, 8C), w2: (4C, C) in the JAX
+    layout; on the card, transposes of contiguous torch Linear weights."""
+    if x.device.type == "cpu":
+        return fused_ln_geglu_ff_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, eps)
+    c = x.shape[-1]
+    f = 4 * c
+    if x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise ValueError("fused_ln_geglu_ff: x must be contiguous bfloat16")
+    if c % 8:
+        raise ValueError("fused_ln_geglu_ff: C must be a multiple of 8")
+    for name, w in (("w1", w1), ("w2", w2)):
+        if w.device != x.device:
+            raise ValueError(f"fused_ln_geglu_ff: {name} not on {x.device}")
+    w1 = _torch_layout(w1, c, 2 * f, "w1")
+    w2 = _torch_layout(w2, f, c, "w2")
+    g = _vec(ln_scale, c, x.device, "ln_scale")
+    b = _vec(ln_bias, c, x.device, "ln_bias")
+    b1_32 = _vec(b1, 2 * f, x.device, "b1")
+    b2_32 = _vec(b2, c, x.device, "b2")
+    m = x.numel() // c
+    lib = _build.load("fused_ln_geglu_ff", _SIGNATURES)
+    stream = _build.stream_ptr(x.device)
+    act = torch.empty((m, f), dtype=x.dtype, device=x.device)
+    _build.check(lib.mvldm_ff_geglu(
+        _build.ptr(x), _build.ptr(g), _build.ptr(b), _build.ptr(w1),
+        _build.ptr(b1_32), _build.ptr(act), m, c, f, float(eps), stream),
+        "mvldm_ff_geglu")
+    y = torch.empty_like(x)
+    _build.check(lib.mvldm_ff_out(
+        _build.ptr(act), _build.ptr(w2), _build.ptr(b2_32), _build.ptr(x),
+        _build.ptr(y), m, c, f, stream), "mvldm_ff_out")
+    fused_ln_geglu_ff.launches += 1
+    return y
+
+
+fused_ln_geglu_ff.launches = 0
