@@ -15,7 +15,7 @@
 //   * head dims up to 160 (every UNet attention): FlashAttention-2 layout
 //     on mma.sync m16n8k16, scores, P and the output accumulator in
 //     registers (flash_fwd_reg_kernel);
-//   * head dims 256 / 512 (the VAE mid-block's single 512-wide head, whose
+//   * head dim 512 (the VAE mid-block's single 512-wide head, whose
 //     64-row f32 accumulator does not fit in registers): 32 x 32 tiles on
 //     WMMA with the output accumulator in shared memory (flash_fwd_kernel).
 // Neither has asynchronous copies, wgmma or warp specialisation yet.
@@ -414,17 +414,8 @@ cudaError_t launch_reg(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Head dims served: D % 8 == 0 with D rounded up to one of these.
-extern "C" int mvldm_flash_supported_dp(int dp) {
-  switch (dp) {
-    case 32: case 48: case 64: case 80: case 96: case 128: case 160:
-    case 256: case 512:
-      return 1;
-    default:
-      return 0;
-  }
-}
-
+// Head dims served: D % 8 == 0 with D rounded up to 32, 48, 64, 80, 160
+// (the UNet) or 512 (the VAE); any other returns cudaErrorInvalidValue.
 extern "C" int mvldm_flash_attn_fwd(const void* q, const void* k,
                                     const void* v, const void* bias, void* out,
                                     int B, int H, int Lq, int Lk, int D,
@@ -438,10 +429,7 @@ extern "C" int mvldm_flash_attn_fwd(const void* q, const void* k,
     case 48: return (int)launch_reg<48>(q, k, v, bias, out, B, H, Lq, Lk, D, scale, s);
     case 64: return (int)launch_reg<64>(q, k, v, bias, out, B, H, Lq, Lk, D, scale, s);
     case 80: return (int)launch_reg<80>(q, k, v, bias, out, B, H, Lq, Lk, D, scale, s);
-    case 96: return (int)launch_reg<96>(q, k, v, bias, out, B, H, Lq, Lk, D, scale, s);
-    case 128: return (int)launch_reg<128>(q, k, v, bias, out, B, H, Lq, Lk, D, scale, s);
     case 160: return (int)launch_reg<160>(q, k, v, bias, out, B, H, Lq, Lk, D, scale, s);
-    case 256: return (int)launch<256, 32, 32>(q, k, v, bias, out, B, H, Lq, Lk, D, scale, s);
     case 512: return (int)launch<512, 32, 32>(q, k, v, bias, out, B, H, Lq, Lk, D, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -5,10 +5,12 @@ version computed in f32 on the same bf16 inputs. These tests need an
 NVIDIA Hopper GPU and ``nvcc``; without a card they skip. On the GPU
 machine: ``python -m pytest tests/test_torch_port_kernels.py -m cuda``.
 
-Tolerances: the kernels round P (attention), q * scale, LN(x) and the
-GEGLU activation to bf16 at slightly different points than the plain
-versions, and the outputs are bf16 (relative step 2^-8), so elements agree
-to a few bf16 steps: atol 3e-2 and rtol 2e-2 on O(1) values.
+Tolerance: a bf16 output cannot come closer to the f32 value than half a
+bf16 step of itself, so that step is taken off each element's error. What
+is left, the kernel's own error (it rounds P, q, k, v, LN(x) and the GEGLU
+activation to bf16 where the f32 plain version does not), must stay within
+5 % of the rms of what the kernel computes: the output for attention, and
+``out - x`` for the residual blocks.
 """
 
 import pytest
@@ -22,7 +24,19 @@ from mvldm_tpu_torch.ops.fused_attn import (
 from mvldm_tpu_torch.ops.fused_ff import fused_ln_geglu_ff, fused_ln_geglu_ff_reference
 
 pytestmark = pytest.mark.cuda
-TOL = dict(atol=3e-2, rtol=2e-2)
+REL_LIMIT = 0.05
+
+
+def assert_kernel_close(out, ref, residual=None):
+    o = out.float()
+    _, e = torch.frexp(o)
+    half_step = torch.where(o == 0, torch.zeros_like(o),
+                            torch.ldexp(torch.ones_like(o), e - 9))
+    own = ((o - ref).abs() - half_step).clamp_min(0).max().item()
+    delta = ref if residual is None else ref - residual.float()
+    rms = delta.square().mean().sqrt().item()
+    assert torch.isfinite(o).all()
+    assert own <= REL_LIMIT * rms, (own, rms)
 
 
 @pytest.fixture
@@ -57,7 +71,7 @@ def test_flash_attention(cuda, b, h, lq, lk, d, with_bias):
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     ref = attention_reference(q.float(), k.float(), v.float(), bias)
-    torch.testing.assert_close(out.float(), ref, **TOL)
+    assert_kernel_close(out, ref)
 
 
 def test_flash_attention_refuses_float32(cuda):
@@ -88,7 +102,7 @@ def test_fused_ln_self_attention(cuda, n, l, c, heads, d):
     assert fused_ln_self_attention.launches == before + 1
     ref = fused_ln_self_attention_reference(x.float(), g, b, *(w.float() for w in ws),
                                             bo, heads, d)
-    torch.testing.assert_close(out.float(), ref, **TOL)
+    assert_kernel_close(out, ref, residual=x)
 
 
 @pytest.mark.parametrize("n,l,c", [(2, 100, 64), (1, 256, 320)])
@@ -106,4 +120,4 @@ def test_fused_ln_geglu_ff(cuda, n, l, c):
     torch.cuda.synchronize()
     assert fused_ln_geglu_ff.launches == before + 1
     ref = fused_ln_geglu_ff_reference(x.float(), g, b, w1.float(), b1, w2.float(), b2)
-    torch.testing.assert_close(out.float(), ref, **TOL)
+    assert_kernel_close(out, ref, residual=x)

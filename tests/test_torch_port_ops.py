@@ -140,6 +140,25 @@ def test_fused_ff_vs_jax(c, l):
                                atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("c,l", [(32, 64), (40, 16)])
+def test_decomposed_ff_block_vs_jax(monkeypatch, c, l):
+    """The decomposed FF (taken above the channel gate) against ``_ff_jnp``."""
+    x, ln_s, ln_b, w1, b1, w2, b2 = args = _ff_inputs(l=l, c=c)
+    ff = port_layers.FeedForward(c)
+    norm = torch.nn.LayerNorm(c, eps=port_layers.LN_EPS)
+    with torch.no_grad():
+        norm.weight.copy_(_t(ln_s))
+        norm.bias.copy_(_t(ln_b))
+        ff.net[0].proj.weight.copy_(_t(w1).t())
+        ff.net[0].proj.bias.copy_(_t(b1))
+        ff.net[2].weight.copy_(_t(w2).t())
+        ff.net[2].bias.copy_(_t(b2))
+        monkeypatch.setattr(port_layers, "use_fused", lambda c, dtype: False)
+        got = port_layers.ff_block(_t(x), norm, ff).numpy()
+    ref = np.asarray(_ff_jnp(*(jnp.asarray(a) for a in args)))
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-4)
+
+
 def test_fused_attention_cpu_is_plain():
     x, ln_s, ln_b, ws, bo = _attn_inputs()
     args = (_t(x), _t(ln_s), _t(ln_b), *(_t(w) for w in ws), _t(bo), 4, 8)
