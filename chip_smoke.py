@@ -5,23 +5,38 @@
 Phases, each fatal on failure (non-zero exit, no final result line):
 
 1. device and build: the card's name and power limit; the CUDA kernels are
-   compiled from mvldm_tpu_torch/csrc with nvcc (one process per source).
-2. one phase per kernel at the main path's shapes: the kernel against its
+   compiled from mvldm_tpu_torch/csrc with nvcc (one process per source,
+   all started together).
+2. one phase per kernel at the main paths' shapes: the kernel against its
    plain PyTorch version computed in f32 on the same bf16 inputs (see
    ``check``), device times of both (CUDA graph replay between CUDA
    events), the lower bound max(flops / 989 TFLOP/s,
    bytes / 3.35 TB/s) of an H100 SXM, and for attention the time of
-   torch's scaled_dot_product_attention as a yardstick.
-3. the main path: build_flagship("cuda") (the 0.93B SD2.1 multi-view UNet
-   and the SD2.1 VAE, bf16, seeded random weights) and anchored sampling of
-   one synthetic scene (1 context + 16 target frames at 256 px, 25 DDIM
-   steps, CFG 3.0). Every kernel's launch count must rise in this run.
+   torch's scaled_dot_product_attention (its backward for the backward
+   kernels) as a yardstick. The backward phase covers every attention
+   shape of a training step and also holds the forward's lse output.
+3. the sampling path: build_flagship("cuda") (the 0.93B SD2.1 multi-view
+   UNet and the SD2.1 VAE, bf16, seeded random weights) and anchored
+   sampling of one synthetic scene (1 context + 16 target frames at 256 px,
+   25 DDIM steps, CFG 3.0). Every forward kernel's launch count must rise
+   in this run.
 4. a profile of one anchor-launch denoise step: device time by kernel
    group and the device's idle share within the profiled window
    (torch.profiler).
 5. full-width UNet parity: one batched-CFG UNet forward (2 rows x 5 views,
    32x32 latents, view mask) on the card in bf16 with the kernels against
    the host CPU in f32 with the plain versions.
+6. train-step parity: loss and UNet gradient of one training step at batch
+   1 with injected draws, the card (bf16, kernels) against the host CPU
+   (f32, plain versions).
+7. the training path: build_flagship_train("cuda") and the baseline
+   optimizer (AdamW, lr 2e-5, LinearLR from 5e-4 over 200 steps, clip 0.1,
+   bf16 first moment) at batch 2 (2 context + 3 target views at 256 px,
+   images through the frozen VAE): 1 warm-up step, 5 timed steps with the
+   launch counts of all five kernels, which must each rise, and one step
+   with block remat for its peak memory.
+8. a profile of one training step: device time by kernel group, the flash
+   backward on its own, and the idle share.
 
 Every result is one JSON line. The last two lines are the card as
 ``nvidia-smi`` names it and ``{"ok": true, "device": {...}}``.
@@ -43,7 +58,11 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth
 # A kernel's own error, as a share of the rms of what it computes (see check).
 KERNEL_REL_LIMIT = 0.05
 UNET_REL_L2_BOUND = 3e-2
+TRAIN_LOSS_REL_BOUND = 3e-2
+TRAIN_GRAD_REL_L2_BOUND = 1e-1
 N_TARGET = 16
+TRAIN_BATCH = 2
+TRAIN_STEPS = 5
 
 
 def emit(**record) -> None:
@@ -85,6 +104,22 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def event_ms(fn, iters: int) -> float:
+    """Device time of one call from two CUDA events around ``iters`` eager
+    calls, for calls that record an autograd graph (the library backward);
+    host dispatch is inside the time wherever the device outruns it."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
@@ -98,7 +133,8 @@ def check(out, ref, what: str, residual=None) -> dict:
     """Hold a bf16 kernel output against its f32 plain version.
 
     A bf16 output cannot come closer to the f32 value than half a bf16 step
-    of itself, so that step is taken off each element's error; what is left
+    of itself, so that step is taken off each element's error (none from
+    an f32 output); what is left
     is the kernel's own error, which must stay within KERNEL_REL_LIMIT of
     the rms of what the kernel computes: the output for attention, and
     ``out - x`` for a residual block, whose x (~1) would otherwise hide an
@@ -107,12 +143,15 @@ def check(out, ref, what: str, residual=None) -> dict:
     _, e = torch.frexp(o)
     half_step = torch.where(o == 0, torch.zeros_like(o),
                             torch.ldexp(torch.ones_like(o), e - 9))
+    if out.dtype == torch.float32:  # the lse and dbias outputs
+        half_step = torch.zeros_like(o)
     err = (o - ref).abs()
     own = (err - half_step).clamp_min(0).max().item()
     delta = ref if residual is None else ref - residual.float()
     rms = delta.square().mean().sqrt().item()
     rec = dict(max_abs_err=err.max().item(), kernel_err=own,
-               kernel_err_limit=KERNEL_REL_LIMIT * rms, rms_computed=rms)
+               kernel_err_limit=KERNEL_REL_LIMIT * rms, rms_computed=rms,
+               err_over_rms=own / rms)
     if not torch.isfinite(o).all() or not own <= KERNEL_REL_LIMIT * rms:
         fail(f"{what}: kernel error {own:.4g} (max abs {rec['max_abs_err']:.4g}) "
              f"outside {KERNEL_REL_LIMIT} x rms {rms:.4g}")
@@ -248,6 +287,98 @@ def fused_ff_phase(card: str, gen) -> dict:
     return dict(headline, max_abs_err=max_err)
 
 
+def flash_bwd_phase(card: str, gen) -> dict:
+    """The forward's lse and both backward kernels at every attention shape
+    of a training step (batch 2 x 5 views), against the plain chunked
+    backward; times of each kernel, of the plain backward and of
+    scaled_dot_product_attention's backward (its forward + backward less
+    its forward, with the same float mask)."""
+    import torch.nn.functional as F
+
+    from mvldm_tpu_torch.ops.attention import (
+        attention_bwd_reference,
+        attention_reference_lse,
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+
+    # (label, B, H, L, D, bias): B = 2 examples for the joint attention,
+    # 2 x 5 frames for the per-frame ones.
+    cases = [
+        ("joint 32x32 (C=320)", 2, 8, 5 * 1024, 40, True),
+        ("joint 16x16 (C=640)", 2, 8, 5 * 256, 80, True),
+        ("joint 8x8 (C=1280)", 2, 8, 5 * 64, 160, True),
+        ("joint 4x4 (C=1280)", 2, 8, 5 * 16, 160, True),
+        ("SD attn1 32x32 (C=320)", 10, 5, 1024, 64, False),
+        ("SD attn1 16x16 (C=640)", 10, 10, 256, 64, False),
+        ("SD attn1 8x8 (C=1280)", 10, 20, 64, 64, False),
+        ("SD attn1 4x4 (C=1280)", 10, 20, 16, 64, False),
+        ("per-frame attn2 32x32 (C=320)", 10, 8, 1024, 40, False),
+        ("per-frame attn2 16x16 (C=640)", 10, 8, 256, 80, False),
+        ("per-frame attn2 8x8 (C=1280)", 10, 8, 64, 160, False),
+        ("per-frame attn2 4x4 (C=1280)", 10, 8, 16, 160, False),
+    ]
+    out_recs = {}
+    max_err = {"flash_attention_bwd_dq": 0.0, "flash_attention_bwd_dkv": 0.0}
+    for label, b, h, l, d, with_bias in cases:
+        q, k, v, g = (torch.randn((b, h, l, d), generator=gen, device="cuda",
+                                  dtype=torch.bfloat16) for _ in range(4))
+        bias = None
+        if with_bias:
+            # An unconditional row masks its context view out of the keys.
+            bias = torch.zeros((b, l), device="cuda")
+            bias[1:, : l // 5] = -1e30
+        out, lse = flash_attention(q, k, v, bias, return_lse=True)
+        _, ref_lse = attention_reference_lse(q.float(), k.float(), v.float(), bias)
+        acc = {"lse": check(lse, ref_lse, f"flash_attention lse {label}")}
+        dq, delta = flash_attention_bwd_dq(q, k, v, bias, out, lse, g)
+        dk, dv, dbias = flash_attention_bwd_dkv(q, k, v, bias, lse, delta, g)
+        ref = attention_bwd_reference(q.float(), k.float(), v.float(), bias, g.float())
+        for name, got, want in (("dq", dq, ref[0]), ("dk", dk, ref[1]), ("dv", dv, ref[2]),
+                                ("dbias", None if dbias is None else dbias.sum(1), ref[3])):
+            if want is not None:
+                acc[name] = check(got, want, f"flash_attention_bwd {name} {label}")
+        del ref
+        max_err["flash_attention_bwd_dq"] = max(max_err["flash_attention_bwd_dq"],
+                                                acc["dq"]["max_abs_err"])
+        max_err["flash_attention_bwd_dkv"] = max(
+            max_err["flash_attention_bwd_dkv"],
+            *(acc[n]["max_abs_err"] for n in ("dk", "dv", "dbias") if n in acc))
+        iters = 10 if l >= 1024 else 50
+        dq_ms = time_ms(lambda: flash_attention_bwd_dq(q, k, v, bias, out, lse, g), iters)
+        dkv_ms = time_ms(lambda: flash_attention_bwd_dkv(q, k, v, bias, lse, delta, g), iters)
+        plain_ms = time_ms(lambda: attention_bwd_reference(q, k, v, bias, g), 3)
+        mask = None if bias is None else bias[:, None, None, :].to(q.dtype)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+
+        lib_ms = (event_ms(lambda: torch.autograd.grad(lib_fwd(), (qg, kg, vg), g), iters)
+                  - event_ms(lib_fwd, iters))
+        work = b * h * l * l * d
+        dq_bound = bound(6.0 * work, nbytes(q, k, v, out, g, lse, bias, dq, delta))
+        dkv_bound = bound(8.0 * work, nbytes(q, k, v, g, lse, delta, bias, dk, dv, dbias))
+        bwd_bound = bound(10.0 * work, nbytes(q, k, v, out, g, lse, bias, dq, dk, dv, dbias))
+        rec = dict(phase="kernel", kernel="flash_attention_bwd", shape=label, B=b, H=h, L=l,
+                   D=d, bias=with_bias, **{f"{n}_check": a for n, a in acc.items()},
+                   dq_ms=dq_ms, dkv_ms=dkv_ms, bwd_ms=dq_ms + dkv_ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
+                   dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1],
+                   bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1], card=card)
+        emit(**rec)
+        if not out_recs:
+            common = dict(shape=label, plain_ms=plain_ms, library_ms=lib_ms)
+            out_recs["flash_attention_bwd_dq"] = dict(
+                common, ms=dq_ms, bound_ms=dq_bound[0], bound_by=dq_bound[1])
+            out_recs["flash_attention_bwd_dkv"] = dict(
+                common, ms=dkv_ms, bound_ms=dkv_bound[0], bound_by=dkv_bound[1])
+        del q, k, v, g, out, lse, dq, dk, dv, dbias, qg, kg, vg
+        torch.cuda.empty_cache()
+    return {name: dict(rec, max_abs_err=max_err[name]) for name, rec in out_recs.items()}
+
+
 # ------------------------------------------------------------- main path
 
 def make_scene(n_frames: int, hw: int):
@@ -344,45 +475,58 @@ def profile_phase(card: str, engine) -> None:
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-    device = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_kernel = {}
-    for evt in device:
-        ms = (evt.time_range.end - evt.time_range.start) / 1e3 / n_steps
-        by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + ms
 
-    def group(name: str) -> str:
-        n = name.lower()
-        if "flash_fwd" in n:
-            return "flash_attention kernel"
-        if "gemm_kernel" in n and "gemm_tile" in n:
-            return "fused LN+attn / LN+FF GEMM kernels"
-        if "conv" in n or "implicit" in n or "winograd" in n or "nchw" in n or "nhwc" in n:
-            return "convolution (cuDNN)"
-        if any(w in n for w in ("gemm", "xmma", "cutlass", "matmul", "nvjet")):
-            return "matmul (cuBLAS)"
-        if "norm" in n:
-            return "GroupNorm / LayerNorm"
-        return "elementwise / copies / other"
-
-    if not by_kernel:
-        fail("torch.profiler recorded no device time")
-    groups = {}
-    for name, ms in by_kernel.items():
-        groups[group(name)] = groups.get(group(name), 0.0) + ms
-    busy = sum(by_kernel.values())
-    span_ms = (max(e.time_range.end for e in device)
-               - min(e.time_range.start for e in device)) / 1e3 / n_steps
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     emit(phase="profile", what="one anchor-launch denoise step (2 rows x 5 views, "
          "32x32 latents, batched CFG), mean of 3; idle_share = 1 - busy / span "
          "over the profiled window's device events (the profiler's own host "
          "cost widens the gaps); wall_ms in that window, wall_profiler_off_ms "
          "in a window of its own", wall_ms=wall_ms, wall_profiler_off_ms=wall_off_ms,
-         device_span_ms=span_ms, device_busy_ms=busy, idle_share=1.0 - busy / span_ms,
-         device_kernels_per_step=len(device) / n_steps,
-         by_group_ms=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-         top_kernels_ms=[[k[:80], v] for k, v in top], card=card)
+         **device_breakdown(prof, n_steps), card=card)
+
+
+def kernel_group(name: str) -> str:
+    n = name.lower()
+    if "flash_bwd" in n:
+        return "flash attention backward kernels (dQ, dK/dV)"
+    if "flash_fwd" in n:
+        return "flash_attention kernel"
+    if "gemm_kernel" in n and "gemm_tile" in n:
+        return "fused LN+attn / LN+FF GEMM kernels"
+    if "multi_tensor" in n:
+        return "optimizer (multi-tensor foreach)"
+    if "normtwo" in n:
+        return "gradient global norm (reductions)"
+    if "conv" in n or "implicit" in n or "winograd" in n or "nchw" in n or "nhwc" in n:
+        return "convolution (cuDNN)"
+    if any(w in n for w in ("gemm", "xmma", "cutlass", "matmul", "nvjet")):
+        return "matmul (cuBLAS)"
+    if "norm" in n:
+        return "GroupNorm / LayerNorm"
+    return "elementwise / copies / other"
+
+
+def device_breakdown(prof, n_steps: int) -> dict:
+    """Device ms per step by kernel group, busy and span of the profiled
+    window's device events, and the idle share 1 - busy / span."""
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        fail("torch.profiler recorded no device time")
+    by_kernel = {}
+    for evt in device:
+        ms = (evt.time_range.end - evt.time_range.start) / 1e3 / n_steps
+        by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + ms
+    groups = {}
+    for name, ms in by_kernel.items():
+        groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + ms
+    busy = sum(by_kernel.values())
+    span_ms = (max(e.time_range.end for e in device)
+               - min(e.time_range.start for e in device)) / 1e3 / n_steps
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return dict(device_span_ms=span_ms, device_busy_ms=busy, idle_share=1.0 - busy / span_ms,
+                device_kernels_per_step=len(device) / n_steps,
+                by_group_ms=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+                top_kernels_ms=[[k[:80], v] for k, v in top])
 
 
 def unet_parity_phase(card: str, engine) -> None:
@@ -406,6 +550,148 @@ def unet_parity_phase(card: str, engine) -> None:
          finite=bool(torch.isfinite(gpu).all()), card=card)
     if not torch.isfinite(gpu).all() or not rel <= UNET_REL_L2_BOUND:
         fail(f"UNet parity rel L2 {rel:.4g} > {UNET_REL_L2_BOUND}")
+    return cpu_engine
+
+
+# -------------------------------------------------------------- training
+
+def train_parity_phase(card: str, engine, cpu_engine) -> None:
+    """Loss and UNet gradient of one training step at batch 1 (2 context + 3
+    target views at 256 px) with the same injected draws: the card (bf16,
+    kernels) against the host CPU (f32, plain versions), same weights."""
+    from mvldm_tpu_torch.builder import make_train_batch
+    from mvldm_tpu_torch.diffusion.engine import TrainDraws
+
+    batch = make_train_batch(1)
+    draws = TrainDraws.draw(1, 5, 2, (32, 32, 4), 1000, torch.Generator().manual_seed(7))
+    t0 = time.perf_counter()
+
+    def loss_and_grads(engine):
+        loss, _ = engine.training_loss(batch, 2, draws)
+        loss.backward()
+        grads = {n: (p.grad.float().cpu() if p.grad is not None else torch.zeros(p.shape))
+                 for n, p in engine.unet.named_parameters()}
+        for p in engine.unet.parameters():
+            p.grad = None
+        return loss.item(), grads
+
+    gpu_loss, gpu = loss_and_grads(engine)
+    cpu_loss, cpu = loss_and_grads(cpu_engine)
+    loss_rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    num = sum((gpu[n] - cpu[n]).square().sum().item() for n in cpu)
+    den = sum(cpu[n].square().sum().item() for n in cpu)
+    rel = (num / den) ** 0.5
+    per_tensor = sorted(
+        ((torch.linalg.norm(gpu[n] - cpu[n]) / torch.linalg.norm(cpu[n])).item(), n)
+        for n in cpu if torch.linalg.norm(cpu[n]) > 0)
+    finite = all(torch.isfinite(gpu[n]).all() for n in gpu) and np.isfinite(gpu_loss)
+    emit(phase="train_parity", what="one training step at batch 1 (2 ctx + 3 tgt, 256 px, "
+         "injected draws): loss and flattened UNet gradient, card bf16 kernels vs host f32 "
+         "plain", gpu_loss=gpu_loss, cpu_loss=cpu_loss, loss_rel_err=loss_rel,
+         loss_bound=TRAIN_LOSS_REL_BOUND, grad_rel_l2=rel, grad_bound=TRAIN_GRAD_REL_L2_BOUND,
+         worst_tensors=[[n, r] for r, n in per_tensor[::-1][:5]],
+         n_zero_grad_tensors=len(cpu) - len(per_tensor), finite=bool(finite),
+         seconds=time.perf_counter() - t0, card=card)
+    if not finite or not loss_rel <= TRAIN_LOSS_REL_BOUND or not rel <= TRAIN_GRAD_REL_L2_BOUND:
+        fail(f"train parity: loss rel {loss_rel:.4g}, grad rel L2 {rel:.4g}")
+
+
+def train_phase(card: str, engine, kernels):
+    """The training path at batch 2 with the baseline optimizer: 1 warm-up
+    step, TRAIN_STEPS timed steps with launch counters, then one step with
+    block remat for its peak memory. Returns what the profile phase reuses."""
+    from mvldm_tpu_torch.builder import make_train_batch
+    from mvldm_tpu_torch.training import (
+        LRSchedulerCfg,
+        OptimizerCfg,
+        build_lr_schedule,
+        build_optimizer,
+        make_train_step,
+    )
+    from mvldm_tpu_torch.training.trainer import TrainState, master_params
+
+    tx = build_optimizer(
+        OptimizerCfg("AdamW", 2e-5, {"mu_dtype": "bfloat16"}),
+        build_lr_schedule(2e-5, LRSchedulerCfg("LinearLR", {"start_factor": 5e-4,
+                                                            "total_iters": 200})),
+        gradient_clip_val=0.1)
+    params = master_params(engine.unet)
+    state = TrainState(params=params, opt_state=tx.init(params), ema_params=None, step=0)
+    step = make_train_step(engine, tx, num_context_views=2)
+    batch = make_train_batch(TRAIN_BATCH)
+    gen = torch.Generator("cuda").manual_seed(5)
+
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch, generator=gen)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    losses = [metrics["loss/diffusion"]]
+
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, metrics = step(state, batch, generator=gen)
+        losses.append(metrics["loss/diffusion"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(x) for x in losses]
+
+    engine.unet.remat = True
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch, generator=gen)
+    torch.cuda.synchronize()
+    remat_s = time.perf_counter() - t0
+    remat_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses.append(float(metrics["loss/diffusion"]))
+
+    # Peak of the loss and its backward alone, above the memory held before
+    # it (weights, masters, moments): the activations remat trades for time.
+    activations = {}
+    for remat in (False, True):
+        engine.unet.remat = remat
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        engine.training_loss(batch, 2, generator=gen)[0].backward()
+        torch.cuda.synchronize()
+        activations[f"remat_{remat}"] = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+        for p in engine.unet.parameters():
+            p.grad = None
+    engine.unet.remat = False
+
+    emit(phase="train", what=f"training steps at batch {TRAIN_BATCH} (2 ctx + 3 tgt, 256 px, "
+         "images through the frozen VAE), AdamW lr 2e-5 LinearLR(5e-4, 200) clip 0.1 bf16 mu, "
+         "bf16 UNet with f32 masters; losses: warm-up, timed steps, remat step",
+         warmup_s=warm_s, steps=TRAIN_STEPS, steps_per_s=TRAIN_STEPS / dt,
+         step_ms=dt * 1e3 / TRAIN_STEPS, peak_memory_gb=peak, losses=losses,
+         grad_norm_last=metrics["grad_norm"],
+         launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
+         remat_step_s=remat_s, remat_peak_memory_gb=remat_peak,
+         loss_backward_peak_above_held_gb=activations, card=card)
+    if not all(np.isfinite(x) for x in losses):
+        fail(f"non-finite training loss: {losses}")
+    idle = [name for name, n in launches.items() if n == 0]
+    if idle:
+        fail(f"kernels never launched on the training path: {idle}")
+    return state, step, batch, gen, launches
+
+
+def train_profile_phase(card: str, state, step, batch, gen) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    emit(phase="train_profile", what=f"one training step at batch {TRAIN_BATCH}, "
+         "optimizer included; idle_share = 1 - busy / span over the profiled window's "
+         "device events", wall_ms=wall_ms, **device_breakdown(prof, 1), card=card)
 
 
 def main() -> int:
@@ -413,8 +699,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 2
+    from mvldm_tpu_torch.builder import build_flagship_train
     from mvldm_tpu_torch.ops import _build
-    from mvldm_tpu_torch.ops.attention import flash_attention
+    from mvldm_tpu_torch.ops.attention import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
     from mvldm_tpu_torch.ops.fused_attn import fused_ln_self_attention
     from mvldm_tpu_torch.ops.fused_ff import fused_ln_geglu_ff
 
@@ -431,15 +722,29 @@ def main() -> int:
         "flash_attention": attention_phase(card, gen),
         "fused_ln_self_attention": fused_attn_phase(card, gen),
         "fused_ln_geglu_ff": fused_ff_phase(card, gen),
+        **flash_bwd_phase(card, gen),
     }
-    kernels = (flash_attention, fused_ln_self_attention, fused_ln_geglu_ff)
-    engine, launches = main_path_phase(card, kernels)
+    forward = (flash_attention, fused_ln_self_attention, fused_ln_geglu_ff)
+    engine, sampling_launches = main_path_phase(card, forward)
     profile_phase(card, engine)
-    unet_parity_phase(card, engine)
+    cpu_engine = unet_parity_phase(card, engine)
+    del engine
+    torch.cuda.empty_cache()
+
+    engine = build_flagship_train("cuda")
+    train_parity_phase(card, engine, cpu_engine)
+    del cpu_engine
+    state, step, batch, train_gen, train_launches = train_phase(
+        card, engine, forward + (flash_attention_bwd_dq, flash_attention_bwd_dkv))
+    train_profile_phase(card, state, step, batch, train_gen)
 
     meta = {
         "flash_attention": ("mvldm_tpu_torch/csrc/flash_attn_fwd.cu",
                             "mvldm_tpu/ops/attention.py:76"),
+        "flash_attention_bwd_dq": ("mvldm_tpu_torch/csrc/flash_attn_bwd.cu",
+                                   "mvldm_tpu/ops/attention.py:282"),
+        "flash_attention_bwd_dkv": ("mvldm_tpu_torch/csrc/flash_attn_bwd.cu",
+                                    "mvldm_tpu/ops/attention.py:324"),
         "fused_ln_self_attention": ("mvldm_tpu_torch/csrc/fused_ln_attn.cu",
                                     "mvldm_tpu/ops/fused_attn.py:65"),
         "fused_ln_geglu_ff": ("mvldm_tpu_torch/csrc/fused_ln_geglu_ff.cu",
@@ -447,7 +752,10 @@ def main() -> int:
     }
     emit(kernels=[
         dict(name=name, route="cuda", source=meta[name][0], replaces=meta[name][1],
-             launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+             launches=sampling_launches.get(name, 0) + train_launches[name],
+             launches_by_path={"sampling": sampling_launches.get(name, 0),
+                               "training": train_launches[name]},
+             max_abs_err=r["max_abs_err"], ms=r["ms"],
              plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
              library_ms=r["library_ms"], timed_shape=r["shape"])
         for name, r in results.items()

@@ -1,7 +1,9 @@
 """The flagship configuration with seeded random weights (counterpart of
 ``build_flagship`` in the repository's ``bench.py``): the SD2.1 multi-view
 UNet (0.93B parameters) with 8-head cross-view blocks, the SD2.1 VAE, raw
-3+3 ray channels (11 UNet input channels), CFG 3.0 and 25 DDIM steps.
+3+3 ray channels (11 UNet input channels), CFG 3.0 and 25 DDIM steps;
+:func:`build_flagship_train` is the same model for training and
+:func:`make_train_batch` the repository's synthetic training batch.
 
 Released weights are not part of the repository, so the weights are drawn
 from a seeded ``torch.Generator`` on the host (the same values on every
@@ -13,10 +15,11 @@ the joint-attention kernel without effect on the output.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn as nn
 
-from .diffusion.engine import DiffusionEngine, ModelCfg, unet_in_channels
+from .diffusion.engine import Batch, DiffusionEngine, ModelCfg, unet_in_channels
 from .diffusion.schedulers import DDIMScheduler, DDIMSchedulerKwargs
 from .models.mv_attention import SpatialTransformer3DCfg
 from .models.unet import MultiViewUNet, MultiViewUNetCfg
@@ -76,3 +79,28 @@ def build_flagship(device="cuda", dtype: torch.dtype = torch.bfloat16,
     )
     return DiffusionEngine(model_cfg, model.denoiser, model.autoencoder,
                            scheduler, cfg_mode=cfg_mode)
+
+
+def build_flagship_train(device="cuda", seed: int = 0, remat: bool = False
+                         ) -> DiffusionEngine:
+    """The seeded flagship of :func:`build_flagship`, for training: the UNet
+    computes in bf16 (its f32 masters live in the train state) and
+    rematerialises its blocks under ``remat``; the VAE is frozen."""
+    engine = build_flagship(device, torch.bfloat16, seed)
+    engine.unet.remat = remat
+    engine.vae.requires_grad_(False)
+    return engine
+
+
+def make_train_batch(b: int, v: int = 5) -> Batch:
+    """The synthetic flagship training batch of ``bench.py``: 2 context +
+    ``v - 2`` target views of uniform random pixels at 256 px, cameras
+    translating along x, on the host."""
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.uniform(size=(b, v, IMAGE_HW, IMAGE_HW, 3)).astype(np.float32))
+    extr = torch.eye(4).repeat(b, v, 1, 1)
+    extr[:, :, 0, 3] = torch.linspace(0, 1, v)
+    intr = torch.eye(3).repeat(b, v, 1, 1)
+    intr[:, :, 0, 2] = intr[:, :, 1, 2] = 0.5
+    is_target = torch.tensor([[False, False] + [True] * (v - 2)] * b)
+    return Batch(images=images, extrinsics=extr, intrinsics=intr, is_target=is_target)

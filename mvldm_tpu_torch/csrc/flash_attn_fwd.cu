@@ -14,7 +14,10 @@
 // are masked in the kernel, never padded in device memory. Two bodies:
 //   * head dims up to 160 (every UNet attention): FlashAttention-2 layout
 //     on mma.sync m16n8k16, scores, P and the output accumulator in
-//     registers (flash_fwd_reg_kernel);
+//     registers (flash_fwd_reg_kernel). For training it also writes the f32
+//     row log-sum-exp of the scaled and biased logits, (B, H, Lq), which the
+//     backward kernels of flash_attn_bwd.cu rebuild P from (the TPU kernel's
+//     `return_lse` output); a null lse pointer skips that store;
 //   * head dim 512 (the VAE mid-block's single 512-wide head, whose
 //     64-row f32 accumulator does not fit in registers): 32 x 32 tiles on
 //     WMMA with the output accumulator in shared memory (flash_fwd_kernel).
@@ -258,7 +261,8 @@ __global__ void __launch_bounds__(kThreads)
     flash_fwd_reg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v,
                          const float* __restrict__ bias, bf16* __restrict__ out,
-                         int H, int Lq, int Lk, int D, float scale) {
+                         float* __restrict__ lse, int H, int Lq, int Lk, int D,
+                         float scale) {
   constexpr int BM = kRegBM, BN = kRegBN;
   constexpr int QS = DP + 8;   // row stride of the Q and K tiles
   constexpr int VS = BN + 8;   // row stride of the transposed V tile
@@ -378,6 +382,12 @@ __global__ void __launch_bounds__(kThreads)
   bf16* ob = out + (size_t)bh * Lq * D;
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  if (lse != nullptr && t == 0) {
+    // m and log2(l) are in the log2 domain: lse = (m + log2 l) * ln 2.
+    constexpr float kLn2 = 0.6931471805599453f;
+    if (r0 < Lq) lse[(size_t)bh * Lq + r0] = (m0 + __log2f(l0)) * kLn2;
+    if (r1 < Lq) lse[(size_t)bh * Lq + r1] = (m1 + __log2f(l1)) * kLn2;
+  }
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
     const int d = n * 8 + 2 * t;
@@ -393,8 +403,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int DP>
 cudaError_t launch_reg(const void* q, const void* k, const void* v,
-                       const void* bias, void* out, int B, int H, int Lq,
-                       int Lk, int D, float scale, cudaStream_t stream) {
+                       const void* bias, void* out, void* lse, int B, int H,
+                       int Lq, int Lk, int D, float scale, cudaStream_t stream) {
   constexpr size_t bytes = reg_smem_bytes<DP>();
   static bool configured = false;
   if (!configured) {
@@ -408,29 +418,32 @@ cudaError_t launch_reg(const void* q, const void* k, const void* v,
   flash_fwd_reg_kernel<DP><<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const float*>(bias),
-      static_cast<bf16*>(out), H, Lq, Lk, D, scale);
+      static_cast<bf16*>(out), static_cast<float*>(lse), H, Lq, Lk, D, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Head dims served: D % 8 == 0 with D rounded up to 32, 48, 64, 80, 160
-// (the UNet) or 512 (the VAE); any other returns cudaErrorInvalidValue.
+// (the UNet) or 512 (the VAE, forward only: no lse); any other returns
+// cudaErrorInvalidValue. lse may be null; when not, f32 (B, H, Lq).
 extern "C" int mvldm_flash_attn_fwd(const void* q, const void* k,
                                     const void* v, const void* bias, void* out,
-                                    int B, int H, int Lq, int Lk, int D,
-                                    float scale, void* stream) {
+                                    void* lse, int B, int H, int Lq, int Lk,
+                                    int D, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int dp = (D + 15) / 16 * 16;
   if (D % 8 != 0 || Lq <= 0 || Lk <= 0 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
   switch (dp) {
-    case 32: return (int)launch_reg<32>(q, k, v, bias, out, B, H, Lq, Lk, D, scale, s);
-    case 48: return (int)launch_reg<48>(q, k, v, bias, out, B, H, Lq, Lk, D, scale, s);
-    case 64: return (int)launch_reg<64>(q, k, v, bias, out, B, H, Lq, Lk, D, scale, s);
-    case 80: return (int)launch_reg<80>(q, k, v, bias, out, B, H, Lq, Lk, D, scale, s);
-    case 160: return (int)launch_reg<160>(q, k, v, bias, out, B, H, Lq, Lk, D, scale, s);
-    case 512: return (int)launch<512, 32, 32>(q, k, v, bias, out, B, H, Lq, Lk, D, scale, s);
+    case 32: return (int)launch_reg<32>(q, k, v, bias, out, lse, B, H, Lq, Lk, D, scale, s);
+    case 48: return (int)launch_reg<48>(q, k, v, bias, out, lse, B, H, Lq, Lk, D, scale, s);
+    case 64: return (int)launch_reg<64>(q, k, v, bias, out, lse, B, H, Lq, Lk, D, scale, s);
+    case 80: return (int)launch_reg<80>(q, k, v, bias, out, lse, B, H, Lq, Lk, D, scale, s);
+    case 160: return (int)launch_reg<160>(q, k, v, bias, out, lse, B, H, Lq, Lk, D, scale, s);
+    case 512:
+      if (lse != nullptr) return (int)cudaErrorInvalidValue;
+      return (int)launch<512, 32, 32>(q, k, v, bias, out, B, H, Lq, Lk, D, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,11 +1,12 @@
-"""Diffusion engine, sampling half (counterpart of
-``mvldm_tpu/diffusion/engine.py``): ray channels, VAE encode / decode, one
-CFG denoise step, the DDIM loop, and the full encode -> sample -> decode
-pipeline. The training loss comes with a later slice.
+"""Diffusion engine (counterpart of ``mvldm_tpu/diffusion/engine.py``): ray
+channels, VAE encode / decode, the training loss, one CFG denoise step, the
+DDIM loop, and the full encode -> sample -> decode pipeline.
 
 The modules own their parameters; random draws come from a caller's
-``torch.Generator`` (or are passed in, as the parity tests do). Tensors are
-in the JAX layout, (b, v, h, w, c).
+``torch.Generator`` (or are passed in, as the parity tests do: a training
+step's draws are one :class:`TrainDraws`). Tensors are in the JAX layout,
+(b, v, h, w, c). The sampling methods run under ``inference_mode``; the
+training loss runs with autograd, the frozen VAE encode under ``no_grad``.
 
 CFG runs in one of three modes, numerically the same function:
 "sequential" (conditional forward on ctx+tgt, unconditional on the targets
@@ -17,14 +18,15 @@ unconditional row's context views masked out of the joint attention), and
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..geometry.camera_utils import absolute_to_relative_camera
 from ..geometry.projection import get_world_rays, sample_image_grid
 from ..models.encodings import positional_encoding, srt_ray_encode
 from ..models.unet import MultiViewUNet, MultiViewUNetCfg
-from ..models.vae import AutoencoderCfg, AutoencoderKL
+from ..models.vae import AutoencoderCfg, AutoencoderKL, DiagonalGaussian
 from .schedulers import DDIMScheduler
 
 VAE_SCALE = 0.18215  # SD VAE latent scaling
@@ -38,13 +40,15 @@ class RayEncodingsCfg:
 
 @dataclass
 class ModelCfg:
-    """The sampling fields of the JAX package's ``ModelCfg`` (same names)."""
+    """The sampling and training fields of the JAX package's ``ModelCfg``
+    (same names)."""
 
     denoiser: MultiViewUNetCfg = field(default_factory=MultiViewUNetCfg)
     autoencoder: AutoencoderCfg = field(default_factory=AutoencoderCfg)
     ray_encodings: RayEncodingsCfg = field(default_factory=RayEncodingsCfg)
     use_cfg: bool = False
     cfg_scale: float = 3.0
+    cfg_train: bool = True
     use_ray_encoding: bool = True
     srt_ray_encoding: bool = False
     use_plucker: bool = False
@@ -69,6 +73,67 @@ def randn(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
     """N(0, 1) f32 drawn on the generator's device, moved to ``device``."""
     gdev = generator.device if generator is not None else "cpu"
     return torch.randn(shape, generator=generator, device=gdev).to(device)
+
+
+@dataclass
+class Batch:
+    """A flattened multi-view batch: all views concatenated (context first).
+
+    images: (b, v, h, w, 3) in [0, 1]; extrinsics: (b, v, 4, 4) c2w;
+    intrinsics: (b, v, 3, 3) normalised; is_target: (b, v) bool.
+    latent_moments: optional (b, v, h/8, w/8, 2c) VAE posterior moments; when
+    set, the loss samples latents from them instead of encoding ``images``
+    (which may then be None)."""
+
+    images: Optional[torch.Tensor]
+    extrinsics: torch.Tensor
+    intrinsics: torch.Tensor
+    is_target: torch.Tensor
+    latent_moments: Optional[torch.Tensor] = None
+
+
+@dataclass
+class TrainDraws:
+    """Every random draw of one training step, in the order of the JAX
+    loss's keys: the context count and the permutation scores that pick the
+    kept context views, absolute vs relative poses, the VAE posterior's eps,
+    the noise, the timestep and CFG dropout. Tests rebuild them from the JAX
+    keys; :meth:`draw` takes them from a ``torch.Generator``."""
+
+    n_ctx: torch.Tensor          # (b,) int64 in [1, v_c]
+    perm_scores: torch.Tensor    # (b, v_c) f32, U[0, 1)
+    use_relative: torch.Tensor   # (b,) bool, p = 0.5
+    posterior_eps: torch.Tensor  # (b, v, hl, wl, c_latent) f32, N(0, 1)
+    noise: torch.Tensor          # (b, v, hl, wl, c_latent) f32, N(0, 1)
+    t: torch.Tensor              # (b,) int64 in [0, num_train_timesteps)
+    unconditional: torch.Tensor  # (b,) bool, p = 0.1
+
+    @classmethod
+    def draw(cls, b: int, v: int, v_c: int, latent_shape: Tuple[int, int, int],
+             num_train_timesteps: int,
+             generator: Optional[torch.Generator] = None) -> "TrainDraws":
+        gen = generator
+        dev = gen.device if gen is not None else "cpu"
+
+        def uniform(*shape):
+            return torch.rand(shape, generator=gen, device=dev)
+
+        def normal(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+
+        return cls(
+            n_ctx=torch.randint(1, v_c + 1, (b,), generator=gen, device=dev),
+            perm_scores=uniform(b, v_c),
+            use_relative=uniform(b) < 0.5,
+            posterior_eps=normal(b, v, *latent_shape),
+            noise=normal(b, v, *latent_shape),
+            t=torch.randint(0, num_train_timesteps, (b,), generator=gen, device=dev),
+            unconditional=uniform(b) < 0.1,
+        )
+
+    def to(self, device) -> "TrainDraws":
+        return TrainDraws(**{k: getattr(self, k).to(device)
+                             for k in self.__dataclass_fields__})
 
 
 class DiffusionEngine:
@@ -104,6 +169,11 @@ class DiffusionEngine:
                       noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(b, v, h, w, 3) in [0, 1] -> (b, v, h/8, w/8, 4) scaled latents,
         sampled from the posterior with ``noise`` or the generator."""
+        return self._encode(images, generator, noise)
+
+    def _encode(self, images: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, v, h, w, c = images.shape
         flat = images.reshape(b * v, h, w, c).to(self.device) * 2.0 - 1.0
         dist = self.vae.encode(flat)
@@ -151,6 +221,72 @@ class DiffusionEngine:
             enc = torch.cat([origins, directions], dim=-1)
         b, v = extrinsics.shape[:2]
         return enc.reshape(b, v, hl, wl, -1).to(self.dtype)
+
+    # ------------------------------------------------------------- training
+
+    def training_loss(self, batch: Batch, num_context_views: int,
+                      draws: Optional[TrainDraws] = None,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Noise-prediction MSE over the target views, in f32 (the JAX
+        ``training_loss``). The first ``num_context_views`` views are the
+        nominal context, of which a random non-empty subset stays context;
+        ``draws`` (or ``generator``) supplies every random draw."""
+        cfg = self.cfg
+        dev = self.device
+        b, v = batch.extrinsics.shape[:2]
+        v_c = num_context_views
+        if batch.latent_moments is not None:
+            hl, wl = batch.latent_moments.shape[2:4]
+        else:
+            hl, wl = batch.images.shape[2] // 8, batch.images.shape[3] // 8
+        if draws is None:
+            draws = TrainDraws.draw(
+                b, v, v_c, (hl, wl, cfg.autoencoder.kwargs.latent_channels),
+                self.scheduler.num_train_timesteps, generator)
+        d = draws.to(dev)
+
+        # Context count: the views of the first n_ctx ranks of a random
+        # permutation of the context slots stay context.
+        ctx_rank = torch.argsort(torch.argsort(d.perm_scores, dim=-1), dim=-1)
+        ctx_keep = ctx_rank < d.n_ctx[:, None]
+        is_target = torch.cat(
+            [~ctx_keep, torch.ones((b, v - v_c), dtype=torch.bool, device=dev)], dim=1)
+
+        # Absolute vs relative poses; the reference view is a kept context slot.
+        extrinsics = batch.extrinsics.to(dev, torch.float32)
+        rel_index = torch.where(ctx_keep, d.perm_scores, torch.inf).argmin(dim=-1)
+        extrinsics = torch.where(d.use_relative[:, None, None, None],
+                                 absolute_to_relative_camera(extrinsics, rel_index),
+                                 extrinsics)
+
+        # Frozen VAE: no gradient, and no inference-mode tensors in the graph.
+        with torch.no_grad():
+            if batch.latent_moments is not None:
+                moments = batch.latent_moments.to(dev, self.dtype)
+                dist = DiagonalGaussian(moments.reshape(b * v, hl, wl, -1))
+                z = dist.sample(noise=d.posterior_eps.reshape(dist.mean.shape))
+                latents = (z * VAE_SCALE).reshape(b, v, hl, wl, -1)
+            else:
+                latents = self._encode(batch.images, noise=d.posterior_eps)
+
+        noise = d.noise.to(latents.dtype)
+        noisy = self.scheduler.add_noise(
+            latents.reshape(b, -1), noise.reshape(b, -1), d.t).reshape(latents.shape)
+        latents_in = torch.where(is_target[:, :, None, None, None], noisy, latents)
+
+        unconditional = d.unconditional & cfg.cfg_train
+        view_mask = is_target | ~unconditional[:, None]
+
+        rays = self.ray_encode(extrinsics, batch.intrinsics, (hl, wl))
+        mask_ch = is_target.to(self.dtype)[:, :, None, None, None].expand(b, v, hl, wl, 1)
+        inputs = torch.cat([latents_in.to(self.dtype), mask_ch, rays], dim=-1)
+        timesteps = torch.where(is_target, d.t[:, None], 0)
+        pred = self.unet(inputs, timesteps, view_mask=view_mask)
+
+        per_view = ((pred.float() - noise.float()) ** 2).mean(dim=(2, 3, 4))
+        loss = (per_view * is_target).sum() / is_target.sum().clamp_min(1)
+        return loss, {"loss/diffusion": loss}
 
     # ------------------------------------------------------------- sampling
 

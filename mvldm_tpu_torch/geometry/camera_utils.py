@@ -2,10 +2,20 @@
 
 from __future__ import annotations
 
+from typing import Union
+
 import torch
 
 
-def absolute_to_relative_camera(tform: torch.Tensor, index: int) -> torch.Tensor:
-    """Express all c2w poses (..., v, 4, 4) relative to the pose at view
-    ``index``: inv(tform[..., index]) @ tform."""
-    return torch.linalg.inv(tform[..., [index], :, :]) @ tform
+def absolute_to_relative_camera(tform: torch.Tensor,
+                                index: Union[int, torch.Tensor]) -> torch.Tensor:
+    """Express c2w poses relative to a reference view: inv(ref) @ tform.
+
+    ``index`` is an ``int`` (the same view for every leading index of a
+    (..., v, 4, 4) ``tform``) or a (b,) integer tensor naming one view per
+    example of a (b, v, 4, 4) ``tform``, the JAX loss's ``vmap`` over
+    ``rel_index`` written out."""
+    if isinstance(index, int):
+        return torch.linalg.inv(tform[..., [index], :, :]) @ tform
+    ref = tform[torch.arange(tform.shape[0], device=tform.device), index.to(tform.device)]
+    return torch.linalg.inv(ref)[:, None] @ tform

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import attention
 from ..ops.fused_attn import fused_ln_self_attention, use_fused
-from ..ops.fused_ff import fused_ln_geglu_ff
+from ..ops.fused_ff import fused_ln_geglu_ff, ln_geglu_ff_decomposed
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default, used by every transformer norm
 
@@ -195,17 +195,12 @@ def self_attn_block(x: torch.Tensor, norm: nn.LayerNorm, attn: CrossAttention
 def ff_block(x: torch.Tensor, norm: nn.LayerNorm, ff: FeedForward
              ) -> torch.Tensor:
     """``x + FeedForward(LayerNorm(x))`` through the fused kernel at the JAX
-    package's channel gate, else the decomposed path (the JAX ``_ff_jnp``):
-    both products in x's dtype with f32 accumulation, GEGLU and the residual
-    add in f32. torch rounds each product's output to x's dtype where JAX
-    keeps it in f32, one rounding step more."""
+    package's channel gate, else the decomposed path (the JAX ``_ff_jnp``,
+    see ``ops/fused_ff.ln_geglu_ff_decomposed``)."""
     proj, out = ff.net[0].proj, ff.net[2]
-    if use_fused(x.shape[-1], x.dtype):
-        return fused_ln_geglu_ff(x, norm.weight, norm.bias, proj.weight.t(),
-                                 proj.bias, out.weight.t(), out.bias, eps=LN_EPS)
-    h, gate = proj(layer_norm(x, norm)).float().chunk(2, dim=-1)
-    act = (h * F.gelu(gate)).to(x.dtype)
-    return (x.float() + out(act).float()).to(x.dtype)
+    fn = fused_ln_geglu_ff if use_fused(x.shape[-1], x.dtype) else ln_geglu_ff_decomposed
+    return fn(x, norm.weight, norm.bias, proj.weight.t(), proj.bias, out.weight.t(),
+              out.bias, eps=LN_EPS)
 
 
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:

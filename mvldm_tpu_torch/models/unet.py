@@ -11,7 +11,12 @@ As in the JAX package:
   live checkpoint's path;
 * timesteps may be per view, (b, v); context views get t = 0;
 * the text cross-attention receives the live model's all-zero conditioning,
-  for which it collapses to a constant.
+  for which it collapses to a constant;
+* ``remat`` (training) recomputes each ResNet, ``Transformer2D`` and
+  ``SpatialTransformer3D`` block in the backward instead of keeping its
+  activations, the counterpart of ``nn.remat`` around those blocks
+  (``torch.utils.checkpoint``, non-reentrant). The JAX ``remat_policy``
+  ("dots") is not carried over.
 
 The public forward keeps the JAX layout: (b, v, h, w, c) in and out.
 """
@@ -24,6 +29,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .layers import (
     Downsample,
@@ -90,9 +96,10 @@ class MultiViewUNet(nn.Module):
     keys to cross-view attention)."""
 
     def __init__(self, cfg: MultiViewUNetCfg, in_channels: int = 11,
-                 out_channels: int = 4):
+                 out_channels: int = 4, remat: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.remat = remat
         bb = cfg.autoencoder
         ch = bb.block_out_channels
         groups, eps, lpb = bb.norm_num_groups, bb.norm_eps, bb.layers_per_block
@@ -165,13 +172,19 @@ class MultiViewUNet(nn.Module):
         if cfg.decoder_conditioning:
             self.cross_attn_blocks_decoder = nn.ModuleList([cross(c) for c in rev])
 
+    def _block(self, fn, *args):
+        """Run one block, rematerialised in the backward under ``remat``."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
     def _cross_view(self, group: str, i: int, x: torch.Tensor, v: int,
                     view_mask: Optional[torch.Tensor]) -> torch.Tensor:
         h, w = x.shape[-2:]
         size = self.cfg.cross_view_max_size
         if h > size or w > size or not hasattr(self, group):
             return x
-        return getattr(self, group)[i].forward_nchw(x, v, view_mask)
+        return self._block(getattr(self, group)[i].forward_nchw, x, v, view_mask)
 
     def forward(self, latents: torch.Tensor, timestep: torch.Tensor,
                 view_mask: Optional[torch.Tensor] = None,
@@ -192,9 +205,9 @@ class MultiViewUNet(nn.Module):
         skips = [hidden]
         for i, blk in enumerate(u.down_blocks):
             for j, res in enumerate(blk.resnets):
-                hidden = res(hidden, temb)
+                hidden = self._block(res, hidden, temb)
                 if hasattr(blk, "attentions"):
-                    hidden = blk.attentions[j](hidden, cond_state)
+                    hidden = self._block(blk.attentions[j], hidden, cond_state)
                 skips.append(hidden)
             hidden = self._cross_view("cross_attn_blocks_encoder", i, hidden, v, view_mask)
             if hasattr(blk, "downsamplers"):
@@ -202,16 +215,16 @@ class MultiViewUNet(nn.Module):
                 skips.append(hidden)
 
         mid = u.mid_block
-        hidden = mid.resnets[0](hidden, temb)
-        hidden = mid.attentions[0](hidden, cond_state)
-        hidden = mid.resnets[1](hidden, temb)
+        hidden = self._block(mid.resnets[0], hidden, temb)
+        hidden = self._block(mid.attentions[0], hidden, cond_state)
+        hidden = self._block(mid.resnets[1], hidden, temb)
         hidden = self._cross_view("cross_attn_blocks_mid", 0, hidden, v, view_mask)
 
         for i, blk in enumerate(u.up_blocks):
             for j, res in enumerate(blk.resnets):
-                hidden = res(torch.cat([hidden, skips.pop()], dim=1), temb)
+                hidden = self._block(res, torch.cat([hidden, skips.pop()], dim=1), temb)
                 if hasattr(blk, "attentions"):
-                    hidden = blk.attentions[j](hidden, cond_state)
+                    hidden = self._block(blk.attentions[j], hidden, cond_state)
             hidden = self._cross_view("cross_attn_blocks_decoder", i, hidden, v, view_mask)
             if hasattr(blk, "upsamplers"):
                 hidden = blk.upsamplers[0](hidden)

@@ -1,9 +1,9 @@
 """Fused LayerNorm -> multi-head self-attention -> output projection ->
 residual: y = x + W_o MHA(LN(x)) + b_o.
 
-Counterpart of ``mvldm_tpu/ops/fused_attn.py`` (forward only). The weights
-are the unpadded (C, H*D) q/k/v and (H*D, C) output projections; the TPU's
-128-lane ``pad_heads`` layout is not carried over.
+Counterpart of ``mvldm_tpu/ops/fused_attn.py``. The weights are the
+unpadded (C, H*D) q/k/v and (H*D, C) output projections; the TPU's 128-lane
+``pad_heads`` layout is not carried over.
 
 * :func:`fused_ln_self_attention_reference` — plain PyTorch, mirroring the
   JAX decomposed path ``_attn_jnp``: f32 LayerNorm (eps 1e-6) rounded to the
@@ -14,6 +14,10 @@ are the unpadded (C, H*D) q/k/v and (H*D, C) output projections; the TPU's
   the scale folded into q, then the flash kernel, then the out-projection
   with the bias + residual epilogue), or raise.
   ``fused_ln_self_attention.launches`` counts calls that launched them.
+  Differentiable: the backward recomputes through the decomposed path
+  (the JAX ``_attn_bwd``), whose attention core is ``attention``'s
+  autograd Function, so on the card its backward is the flash backward
+  kernels.
 
 ``MAX_FUSED_CHANNEL_BYTES`` is the JAX package's gate (C * itemsize <= 1280),
 kept so both packages take the same path per layer (see
@@ -29,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .attention import _launch_flash, attention_reference
+from .attention import _launch_flash, attention, attention_reference
 
 MAX_FUSED_CHANNEL_BYTES = 640 * 2
 
@@ -89,16 +93,78 @@ def _vec(t: torch.Tensor, n: int, device, name: str) -> torch.Tensor:
     return t.float().contiguous()
 
 
+def _attn_decomposed(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, num_heads: int,
+                     head_dim: int, eps: float) -> torch.Tensor:
+    """The function the backward differentiates, ``_attn_jnp``'s
+    counterpart: products in x's dtype (on the card, bf16 cuBLAS), the
+    attention core through the differentiable dispatcher."""
+    shape = x.shape
+    dtype = x.dtype
+    x3 = x.reshape(-1, shape[-2], shape[-1])
+    n, l, _ = x3.shape
+    xn = _layer_norm(x3, ln_scale, ln_bias, eps).to(dtype)
+
+    def heads(w):
+        h = (xn @ w.to(dtype)).reshape(n, l, num_heads, head_dim)
+        return h.transpose(1, 2).contiguous()
+
+    o = attention(heads(wq), heads(wk), heads(wv), scale=1.0 / head_dim ** 0.5)
+    o = o.transpose(1, 2).reshape(n, l, num_heads * head_dim)
+    y = (o @ wo.to(dtype)).float() + bo.float()
+    return (x3.float() + y).to(dtype).reshape(shape)
+
+
+def _recompute_grads(fn, ctx, g):
+    """Gradients of ``fn(*saved)`` for the inputs that need them, by
+    recomputing ``fn`` under autograd (the JAX ``jax.vjp`` of the decomposed
+    path)."""
+    inputs = [t.detach().requires_grad_(need)
+              for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+    with torch.enable_grad():
+        y = fn(*inputs)
+    wanted = [t for t in inputs if t.requires_grad]
+    grads = iter(torch.autograd.grad(y, wanted, g, allow_unused=True))
+    return tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
+class _FusedLnSelfAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, wq, wk, wv, wo, bo, num_heads,
+                head_dim, eps):
+        ctx.cfg = (num_heads, head_dim, eps)
+        ctx.save_for_backward(x, ln_scale, ln_bias, wq, wk, wv, wo, bo)
+        if x.device.type == "cpu":
+            return fused_ln_self_attention_reference(
+                x, ln_scale, ln_bias, wq, wk, wv, wo, bo, num_heads, head_dim, eps)
+        return _fused_attn_cuda(x, ln_scale, ln_bias, wq, wk, wv, wo, bo,
+                                num_heads, head_dim, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        num_heads, head_dim, eps = ctx.cfg
+        grads = _recompute_grads(
+            lambda *a: _attn_decomposed(*a, num_heads, head_dim, eps), ctx, g)
+        return (*grads, None, None, None)
+
+
 def fused_ln_self_attention(x, ln_scale, ln_bias, wq, wk, wv, wo, bo,
                             num_heads: int, head_dim: int,
                             eps: float = 1e-6) -> torch.Tensor:
-    """x: (..., L, C) -> x + W_o MHA(LN(x)) + b_o.
+    """x: (..., L, C) -> x + W_o MHA(LN(x)) + b_o, differentiable.
 
     wq/wk/wv: (C, H*D) and wo: (H*D, C) in the JAX layout. On the card they
     must be the transposes of contiguous torch Linear weights."""
+    args = (x, ln_scale, ln_bias, wq, wk, wv, wo, bo)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _FusedLnSelfAttention.apply(*args, num_heads, head_dim, eps)
     if x.device.type == "cpu":
-        return fused_ln_self_attention_reference(
-            x, ln_scale, ln_bias, wq, wk, wv, wo, bo, num_heads, head_dim, eps)
+        return fused_ln_self_attention_reference(*args, num_heads, head_dim, eps)
+    return _fused_attn_cuda(*args, num_heads, head_dim, eps)
+
+
+def _fused_attn_cuda(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, num_heads: int,
+                     head_dim: int, eps: float) -> torch.Tensor:
+    """The three launches of ``csrc/fused_ln_attn.cu`` and the flash core."""
     shape = x.shape
     c = shape[-1]
     l = shape[-2]

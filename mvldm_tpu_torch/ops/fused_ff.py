@@ -1,7 +1,7 @@
 """Fused LayerNorm -> GEGLU feed-forward -> residual:
 y = x + W2 (h * gelu_erf(g)) + b2 with [h | g] = LN(x) W1 + b1.
 
-Counterpart of ``mvldm_tpu/ops/fused_ff.py`` (forward only).
+Counterpart of ``mvldm_tpu/ops/fused_ff.py``.
 
 * :func:`fused_ln_geglu_ff_reference` — plain PyTorch, mirroring ``_ff_jnp``:
   f32 LayerNorm (eps 1e-6), LN(x) and act rounded to the input dtype before
@@ -10,6 +10,8 @@ Counterpart of ``mvldm_tpu/ops/fused_ff.py`` (forward only).
   tensors take the two kernels of ``csrc/fused_ln_geglu_ff.cu`` (LN + W1
   GEMM with the GEGLU epilogue, then W2 with the bias + residual epilogue),
   or raise. ``fused_ln_geglu_ff.launches`` counts calls that launched them.
+  Differentiable: the backward recomputes through the decomposed path (the
+  JAX ``_ff_bwd``); no kernel is involved there.
 
 The JAX gate C * itemsize <= 1280 applies (``fused_attn.use_fused``, used by
 ``models/layers.ff_block``); at C = 1280 both packages take the decomposed
@@ -24,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .fused_attn import _layer_norm, _torch_layout, _vec
+from .fused_attn import _layer_norm, _recompute_grads, _torch_layout, _vec
 
 _SIGNATURES = {
     "mvldm_ff_geglu": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
@@ -46,12 +48,52 @@ def fused_ln_geglu_ff_reference(x, ln_scale, ln_bias, w1, b1, w2, b2,
     return (xf + o).to(dtype)
 
 
+def ln_geglu_ff_decomposed(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                           eps: float = 1e-6) -> torch.Tensor:
+    """``_ff_jnp``'s counterpart in x's dtype: LayerNorm with f32
+    statistics, both products (biases in their epilogue) in that dtype on
+    cuBLAS, GEGLU and the residual add in f32. torch rounds each product's
+    output to x's dtype where JAX keeps f32, one rounding step more. The
+    function the fused block's backward differentiates, and the path
+    ``models/layers.ff_block`` takes above the channel gate."""
+    dtype = x.dtype
+    xn = F.layer_norm(x, (x.shape[-1],), ln_scale.to(dtype), ln_bias.to(dtype), eps)
+    h, gate = F.linear(xn, w1.t().to(dtype), b1.to(dtype)).float().chunk(2, dim=-1)
+    act = (h * F.gelu(gate)).to(dtype)
+    return (x.float() + F.linear(act, w2.t().to(dtype), b2.to(dtype)).float()).to(dtype)
+
+
+class _FusedLnGegluFF(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, w1, b1, w2, b2, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, ln_scale, ln_bias, w1, b1, w2, b2)
+        if x.device.type == "cpu":
+            return fused_ln_geglu_ff_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, eps)
+        return _fused_ff_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        eps = ctx.eps
+        grads = _recompute_grads(lambda *a: ln_geglu_ff_decomposed(*a, eps), ctx, g)
+        return (*grads, None)
+
+
 def fused_ln_geglu_ff(x, ln_scale, ln_bias, w1, b1, w2, b2,
                       eps: float = 1e-6) -> torch.Tensor:
-    """x: (..., L, C) -> x + FF(LN(x)). w1: (C, 8C), w2: (4C, C) in the JAX
-    layout; on the card, transposes of contiguous torch Linear weights."""
+    """x: (..., L, C) -> x + FF(LN(x)), differentiable. w1: (C, 8C), w2:
+    (4C, C) in the JAX layout; on the card, transposes of contiguous torch
+    Linear weights."""
+    args = (x, ln_scale, ln_bias, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _FusedLnGegluFF.apply(*args, eps)
     if x.device.type == "cpu":
-        return fused_ln_geglu_ff_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, eps)
+        return fused_ln_geglu_ff_reference(*args, eps)
+    return _fused_ff_cuda(*args, eps)
+
+
+def _fused_ff_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float) -> torch.Tensor:
+    """The two launches of ``csrc/fused_ln_geglu_ff.cu``."""
     c = x.shape[-1]
     f = 4 * c
     if x.dtype != torch.bfloat16 or not x.is_contiguous():
