@@ -7,35 +7,45 @@ Phases, each fatal on failure (non-zero exit, no final result line):
 1. device and build: the card's name and power limit; the CUDA kernels are
    compiled from mvldm_tpu_torch/csrc with nvcc (one process per source,
    all started together).
-2. one phase per kernel at the main paths' shapes: the kernel against its
-   plain PyTorch version computed in f32 on the same bf16 inputs (see
-   ``check``), device times of both (CUDA graph replay between CUDA
-   events), the lower bound max(flops / 989 TFLOP/s,
+2. one phase per kernel of sampling and training at the main paths'
+   shapes: the kernel against its plain PyTorch version computed in f32 on
+   the same bf16 inputs (see ``check``), device times of both (CUDA graph
+   replay between CUDA events), the lower bound max(flops / 989 TFLOP/s,
    bytes / 3.35 TB/s) of an H100 SXM, and for attention the time of
    torch's scaled_dot_product_attention (its backward for the backward
    kernels) as a yardstick. The backward phase covers every attention
    shape of a training step and also holds the forward's lse output.
-3. the sampling path: build_flagship("cuda") (the 0.93B SD2.1 multi-view
+3. the microbenchmark path (mvldm_tpu_torch.tools.bench_attn_micro):
+   every section (matmul exp flash fullk floor) at the tool's shapes, as
+   ``python -m mvldm_tpu_torch.tools.bench_attn_micro`` runs them, with
+   launch counters. Each probe call's kernel output is held against the
+   plain version on the same inputs (attention two batch rows at a time),
+   and the call reports device times of kernel, plain version and library
+   call (cuBLAS, SDPA, torch.exp) and the bound at its route's peak (bf16
+   989, TF32 495, FP32 FFMA 67 TFLOP/s), one JSON line per probe call.
+   Every probe kernel's launch count must rise in this run. Then flash and
+   fullk at a ragged L = 1000 against their plain versions.
+4. the sampling path: build_flagship("cuda") (the 0.93B SD2.1 multi-view
    UNet and the SD2.1 VAE, bf16, seeded random weights) and anchored
    sampling of one synthetic scene (1 context + 16 target frames at 256 px,
    25 DDIM steps, CFG 3.0). Every forward kernel's launch count must rise
    in this run.
-4. a profile of one anchor-launch denoise step: device time by kernel
+5. a profile of one anchor-launch denoise step: device time by kernel
    group and the device's idle share within the profiled window
    (torch.profiler).
-5. full-width UNet parity: one batched-CFG UNet forward (2 rows x 5 views,
+6. full-width UNet parity: one batched-CFG UNet forward (2 rows x 5 views,
    32x32 latents, view mask) on the card in bf16 with the kernels against
    the host CPU in f32 with the plain versions.
-6. train-step parity: loss and UNet gradient of one training step at batch
+7. train-step parity: loss and UNet gradient of one training step at batch
    1 with injected draws, the card (bf16, kernels) against the host CPU
    (f32, plain versions).
-7. the training path: build_flagship_train("cuda") and the baseline
+8. the training path: build_flagship_train("cuda") and the baseline
    optimizer (AdamW, lr 2e-5, LinearLR from 5e-4 over 200 steps, clip 0.1,
    bf16 first moment) at batch 2 (2 context + 3 target views at 256 px,
    images through the frozen VAE): 1 warm-up step, 5 timed steps with the
    launch counts of all five kernels, which must each rise, and one step
    with block remat for its peak memory.
-8. a profile of one training step: device time by kernel group, the flash
+9. a profile of one training step: device time by kernel group, the flash
    backward on its own, and the idle share.
 
 Every result is one JSON line. The last two lines are the card as
@@ -46,15 +56,14 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
-PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
-PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth
+from mvldm_tpu_torch.tools.measure import bound, card_line, event_ms, nbytes, time_ms
+
 # A kernel's own error, as a share of the rms of what it computes (see check).
 KERNEL_REL_LIMIT = 0.05
 UNET_REL_L2_BOUND = 3e-2
@@ -72,61 +81,6 @@ def emit(**record) -> None:
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     raise SystemExit(1)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, iters: int) -> float:
-    """Device time of one call: ``iters`` calls captured in one CUDA graph
-    and replayed between two events, so the host's dispatch (Python checks,
-    allocation, ctypes) stays out of the time."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    del graph
-    torch.cuda.empty_cache()
-    return start.elapsed_time(end) / iters
-
-
-def event_ms(fn, iters: int) -> float:
-    """Device time of one call from two CUDA events around ``iters`` eager
-    calls, for calls that record an autograd graph (the library backward);
-    host dispatch is inside the time wherever the device outruns it."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
-
-
-def bound(flops: float, moved: int):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def check(out, ref, what: str, residual=None) -> dict:
@@ -377,6 +331,100 @@ def flash_bwd_phase(card: str, gen) -> dict:
         del q, k, v, g, out, lse, dq, dk, dv, dbias, qg, kg, vg
         torch.cuda.empty_cache()
     return {name: dict(rec, max_abs_err=max_err[name]) for name, rec in out_recs.items()}
+
+
+# ------------------------------------------------ attention microbenchmark
+
+# Where the four probe kernels stand and what they replace; the kernels line
+# takes each probe's first case of the run.
+MICRO_META = {
+    "matmul": ("mvldm_tpu_torch/csrc/micro_matmul.cu", "tools/bench_attn_micro.py:59"),
+    "fullk": ("mvldm_tpu_torch/csrc/micro_attn.cu", "tools/bench_attn_micro.py:91"),
+    "flash": ("mvldm_tpu_torch/csrc/micro_attn.cu", "tools/bench_attn_micro.py:163"),
+    "exp": ("mvldm_tpu_torch/csrc/micro_exp.cu", "tools/bench_attn_micro.py:249"),
+}
+MICRO_PLAIN_ROWS = 2  # batch rows per call of an attention probe's plain version
+MICRO_RAGGED_L = 1000  # not a multiple of the kernels' 64-row tiles
+
+
+def _jsonable(v):
+    return v if v is None or isinstance(v, (bool, int, float, str)) else str(v)
+
+
+def _plain_by_rows(plain, *inputs):
+    """An attention probe's plain version over MICRO_PLAIN_ROWS batch rows at
+    a time (its f32 score matrix at b = 16, L = 5120 would take 13.4 GB);
+    the matmul and exp plain versions in one call."""
+    if inputs[0].dim() != 4:
+        return plain(*inputs)
+    return torch.cat([plain(*(t[i:i + MICRO_PLAIN_ROWS] for t in inputs))
+                      for i in range(0, inputs[0].shape[0], MICRO_PLAIN_ROWS)])
+
+
+def micro_check(case, out) -> dict:
+    """A probe kernel's output against its plain version on the same inputs:
+    bf16 outputs by ``check`` against the plain version on f32 inputs; the
+    f32 matmul within relative L2 1e-5 of the product in float64, exp within
+    1e-6 relative of exp in float64. Adds the plain version's device time."""
+    what = f"micro probe on {[(tuple(t.shape), str(t.dtype)) for t in case.inputs]}"
+    if out.dtype == torch.float32:
+        x64 = [t.double() for t in case.inputs]
+        if len(x64) == 2:  # matmul
+            ref = x64[0] @ x64[1]
+            err = (torch.linalg.norm(out.double() - ref) / torch.linalg.norm(ref)).item()
+            limit = 1e-5
+        else:
+            ref = torch.exp(x64[0])
+            err, limit = ((out.double() - ref).abs() / ref).max().item(), 1e-6
+        acc = dict(max_abs_err=(out.double() - ref).abs().max().item(), kernel_err=err,
+                   kernel_err_limit=limit)
+        if not torch.isfinite(out).all() or not err <= limit:
+            fail(f"{what}: f32 error {err:.4g} > {limit}")
+    else:
+        ref = _plain_by_rows(case.plain, *(t.float() for t in case.inputs))
+        acc = check(out, ref, what)
+    del out, ref
+    acc["plain_ms"] = time_ms(lambda: _plain_by_rows(case.plain, *case.inputs), 3)
+    return acc
+
+
+def micro_phase(card: str):
+    """Every section of the tool at its shapes with the launch counters set
+    to 0, each probe's kernel output held against its plain version on the
+    same inputs as it runs; then the ragged-L checks. Returns the kernels
+    line's records and the launch counts."""
+    from mvldm_tpu_torch.tools import bench_attn_micro as micro
+
+    for fn in micro.KERNELS:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    results = micro.run(micro.SECTIONS, check=micro_check)
+    seconds = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in micro.KERNELS}
+    for r in results:
+        emit(phase="micro", **{k: _jsonable(v) for k, v in r.items() if k != "case"},
+             case={k: _jsonable(v) for k, v in r["case"].items()}, card=card)
+    emit(phase="micro_run", what="python -m mvldm_tpu_torch.tools.bench_attn_micro "
+         "matmul exp flash fullk floor", probe_calls=len(results), seconds=seconds,
+         launches=launches, card=card)
+    idle = [name for name, n in launches.items() if n == 0]
+    if idle:
+        fail(f"probe kernels never launched on the microbenchmark path: {idle}")
+
+    shape = (2, 8, MICRO_RAGGED_L, 40)
+    ragged = [(f"flash dot={dt}", micro.flash_case(*shape, dt))
+              for dt in (torch.float32, torch.bfloat16)]
+    ragged += [(f"fullk do_max={m}", micro.fullk_case(*shape, m)) for m in (True, False, "none")]
+    for label, case in ragged:
+        emit(phase="micro_ragged", probe=label, shape=shape,
+             **micro_check(case, case.kernel(*case.inputs)), card=card)
+
+    records = {}
+    for name in MICRO_META:
+        mine = [r for r in results if r["probe"] == name]
+        records[name] = dict(mine[0], shape={k: _jsonable(v) for k, v in mine[0]["case"].items()},
+                             max_abs_err=max(r["max_abs_err"] for r in mine))
+    return records, launches
 
 
 # ------------------------------------------------------------- main path
@@ -724,6 +772,7 @@ def main() -> int:
         "fused_ln_geglu_ff": fused_ff_phase(card, gen),
         **flash_bwd_phase(card, gen),
     }
+    micro_records, micro_launches = micro_phase(card)
     forward = (flash_attention, fused_ln_self_attention, fused_ln_geglu_ff)
     engine, sampling_launches = main_path_phase(card, forward)
     profile_phase(card, engine)
@@ -759,6 +808,14 @@ def main() -> int:
              plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
              library_ms=r["library_ms"], timed_shape=r["shape"])
         for name, r in results.items()
+    ] + [
+        dict(name=f"bench_attn_micro.{name}", route="cuda", source=MICRO_META[name][0],
+             replaces=MICRO_META[name][1], launches=micro_launches[name],
+             launches_by_path={"micro": micro_launches[name]},
+             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+             timed_shape=r["shape"])
+        for name, r in micro_records.items()
     ])
     emit(phase="total", seconds=time.perf_counter() - t_start, card=card)
     print(card, flush=True)

@@ -12,8 +12,9 @@
 // device memory. One block per (batch * head, 64-query tile) walks the key
 // tiles with an online softmax (running max and sum in f32); ragged Lq / Lk
 // are masked in the kernel, never padded in device memory. Two bodies:
-//   * head dims up to 160 (every UNet attention): FlashAttention-2 layout
-//     on mma.sync m16n8k16, scores, P and the output accumulator in
+//   * head dims up to 160 (every UNet attention, and 128, the padded head
+//     of the attention microbenchmark's flash probe): FlashAttention-2
+//     layout on mma.sync m16n8k16, scores, P and the output accumulator in
 //     registers (flash_fwd_reg_kernel). For training it also writes the f32
 //     row log-sum-exp of the scaled and biased logits, (B, H, Lq), which the
 //     backward kernels of flash_attn_bwd.cu rebuild P from (the TPU kernel's
@@ -22,36 +23,24 @@
 //     64-row f32 accumulator does not fit in registers): 32 x 32 tiles on
 //     WMMA with the output accumulator in shared memory (flash_fwd_kernel).
 // Neither has asynchronous copies, wgmma or warp specialisation yet.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "attn_tile.cuh"  // bf16, ld32, mma_16816, pack_bf16, quad_*, load_rows
 
 using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
+using attn_tile::bf16;
+using attn_tile::ld32;
+using attn_tile::load_rows;
+using attn_tile::mma_16816;
+using attn_tile::pack_bf16;
+using attn_tile::quad_max;
+using attn_tile::quad_sum;
 
-// Copy rows [r0, r0 + R) of a row-major (L, D) bf16 matrix into a (R, DP)
-// shared tile with row stride LD, zero-filling rows >= L and columns >= D.
-// D % 8 == 0.
-template <int DP, int R, int LD = DP>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0,
-                                          int L, int D) {
-  constexpr int kChunks = DP / 8;
-  for (int idx = threadIdx.x; idx < R * kChunks; idx += kThreads) {
-    const int r = idx / kChunks;
-    const int c = (idx % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < L && c < D) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
+constexpr int kThreads = 128;  // load_rows' default block size
+constexpr int kWarps = kThreads / 32;
 
 template <int DP, int BM, int BN>
 constexpr size_t smem_bytes() {
@@ -219,35 +208,6 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // tile (rows padded by 8 elements, so the 32-bit fragment loads of a warp
 // hit distinct banks), and the tile's key bias in the log2 domain.
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 constexpr int kRegBM = 64, kRegBN = 64;
 
 template <int DP>
@@ -306,15 +266,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int k0 = 0; k0 < Lk; k0 += BN) {
     __syncthreads();  // every warp is done with the previous K / V tile
     load_rows<DP, BN, QS>(Ks, kb, k0, Lk, D);
-    for (int idx = threadIdx.x; idx < BN * (DP / 8); idx += kThreads) {
-      const int r = idx / (DP / 8), c = (idx % (DP / 8)) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < Lk && c < D)
-        val = *reinterpret_cast<const uint4*>(vb + (size_t)(k0 + r) * D + c);
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) Vt[(c + i) * VS + r] = e[i];
-    }
+    load_rows<DP, BN, VS, true>(Vt, vb, k0, Lk, D);
     for (int c = threadIdx.x; c < BN; c += kThreads) {
       const int key = k0 + c;
       Bs[c] = key < Lk ? (bias_row ? bias_row[key] * kLog2e : 0.f) : -INFINITY;
@@ -425,7 +377,8 @@ cudaError_t launch_reg(const void* q, const void* k, const void* v,
 }  // namespace
 
 // Head dims served: D % 8 == 0 with D rounded up to 32, 48, 64, 80, 160
-// (the UNet) or 512 (the VAE, forward only: no lse); any other returns
+// (the UNet), 128 (the microbenchmark's padded head) or 512 (the VAE,
+// forward only: no lse); any other returns
 // cudaErrorInvalidValue. lse may be null; when not, f32 (B, H, Lq).
 extern "C" int mvldm_flash_attn_fwd(const void* q, const void* k,
                                     const void* v, const void* bias, void* out,
@@ -440,6 +393,7 @@ extern "C" int mvldm_flash_attn_fwd(const void* q, const void* k,
     case 48: return (int)launch_reg<48>(q, k, v, bias, out, lse, B, H, Lq, Lk, D, scale, s);
     case 64: return (int)launch_reg<64>(q, k, v, bias, out, lse, B, H, Lq, Lk, D, scale, s);
     case 80: return (int)launch_reg<80>(q, k, v, bias, out, lse, B, H, Lq, Lk, D, scale, s);
+    case 128: return (int)launch_reg<128>(q, k, v, bias, out, lse, B, H, Lq, Lk, D, scale, s);
     case 160: return (int)launch_reg<160>(q, k, v, bias, out, lse, B, H, Lq, Lk, D, scale, s);
     case 512:
       if (lse != nullptr) return (int)cudaErrorInvalidValue;

@@ -1,10 +1,14 @@
 // Tiled bf16 GEMM with the prologues and epilogues of the fused transformer
-// sub-blocks (fused_ln_attn.cu, fused_ln_geglu_ff.cu).
+// sub-blocks (fused_ln_attn.cu, fused_ln_geglu_ff.cu), and the plain bf16
+// product of the matmul probe (micro_matmul.cu).
 //
 //   out[M, N] = epilogue( A[M, K] @ W[N, K]^T )
 //
 // W is a torch Linear weight, (out_features, in_features) row-major, read
-// as a column-major K x N operand. A comes from one of:
+// as a column-major K x N operand; with the template flag WKN it is a
+// row-major (K, N) matrix instead, staged as (K, N) rows and read into the
+// B fragments with ldmatrix.trans (the probe's a @ b, b as given). A comes
+// from one of:
 //   kALn     x (M, K) bf16 with the LayerNorm applied while the tile is
 //            staged (f32 statistics, then rounded to bf16 as the JAX
 //            kernels round LN(x) to the weight dtype before the product);
@@ -15,7 +19,8 @@
 //              by qscale; the result is scattered to (N, H, L, D);
 //   kEpiResid  + bias[n] + resid[m, n];
 //   kEpiGeglu  two accumulators, h from W rows [0, N) and the gate from
-//              rows [N, 2N): (h + b[n]) * gelu_erf(g + b[N + n]).
+//              rows [N, 2N): (h + b[n]) * gelu_erf(g + b[N + n]);
+//   kEpiPlain  the product alone.
 // A 128 x 64 output tile per block of eight warps (each 32 x 32) on
 // mma.sync m16n8k16 with f32 accumulators in registers; the K loop stages
 // the next 32-deep A and W tiles through registers into the other half of
@@ -33,10 +38,11 @@ namespace gemm_tile {
 typedef __nv_bfloat16 bf16;
 
 constexpr int kALn = 0, kAHeads = 1, kAPlain = 2;
-constexpr int kEpiQkv = 0, kEpiResid = 1, kEpiGeglu = 2;
+constexpr int kEpiQkv = 0, kEpiResid = 1, kEpiGeglu = 2, kEpiPlain = 3;
 
 constexpr int BM = 128, BN = 64, BK = 32;
 constexpr int LDS = BK + 8;  // padded smem rows: fragment loads hit distinct banks
+constexpr int LDS_KN = BN + 8;  // a (K, N) W tile's padded rows (WKN)
 constexpr int kThreads = 256;
 constexpr int kAChunks = BM * BK / 8 / kThreads;  // uint4 chunks of A per thread
 constexpr int kBChunks = BN * BK / 8 / kThreads;  // per weight tile
@@ -68,6 +74,17 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// The B fragment of one 16 x 8 (k x n) slice of a row-major (k, n) shared
+// tile: lanes 0-15 point at its 16 rows, ldmatrix.trans hands each thread
+// the k-pairs of its column.
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t& b0, uint32_t& b1,
+                                              const bf16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(b0), "=r"(b1)
+               : "r"(addr));
+}
+
 // d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
 __device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
                                           uint32_t b0, uint32_t b1) {
@@ -82,9 +99,10 @@ __device__ __forceinline__ void store2(bf16* p, float lo, float hi) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
 }
 
-template <int AMODE, int EPI>
+template <int AMODE, int EPI, bool WKN = false>
 __global__ void __launch_bounds__(kThreads) gemm_kernel(Args args) {
   constexpr int NB = (EPI == kEpiGeglu) ? 2 : 1;
+  static_assert(!WKN || (NB == 1 && BK * LDS_KN <= BN * LDS), "(K, N) W tile");
   constexpr int kTileA = BM * LDS, kTileB = NB * BN * LDS;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* buf = reinterpret_cast<bf16*>(smem);  // [2][A tile | W tile(s)]
@@ -153,12 +171,19 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(Args args) {
 #pragma unroll
       for (int s = 0; s < kBChunks; ++s) {
         const int idx = threadIdx.x + s * kThreads;
-        const int r = idx / (BK / 8), c8 = (idx % (BK / 8)) * 8;
-        const int gn = n0 + r, gc = k0 + c8;
         rb[nb][s] = make_uint4(0u, 0u, 0u, 0u);
-        if (gn < N && gc < K)
-          rb[nb][s] = *reinterpret_cast<const uint4*>(
-              W + ((size_t)nb * N + gn) * K + gc);
+        if constexpr (WKN) {  // row k of W, columns [c8, c8 + 8)
+          const int r = idx / (BN / 8), c8 = (idx % (BN / 8)) * 8;
+          const int gk = k0 + r, gn = n0 + c8;
+          if (gk < K && gn < N)
+            rb[nb][s] = *reinterpret_cast<const uint4*>(W + (size_t)gk * N + gn);
+        } else {
+          const int r = idx / (BK / 8), c8 = (idx % (BK / 8)) * 8;
+          const int gn = n0 + r, gc = k0 + c8;
+          if (gn < N && gc < K)
+            rb[nb][s] = *reinterpret_cast<const uint4*>(
+                W + ((size_t)nb * N + gn) * K + gc);
+        }
       }
   };
   // Registers -> shared half ``b`` (the LayerNorm is applied here).
@@ -186,8 +211,13 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(Args args) {
 #pragma unroll
       for (int s = 0; s < kBChunks; ++s) {
         const int idx = threadIdx.x + s * kThreads;
-        const int r = idx / (BK / 8), c8 = (idx % (BK / 8)) * 8;
-        *reinterpret_cast<uint4*>(Bs + (nb * BN + r) * LDS + c8) = rb[nb][s];
+        if constexpr (WKN) {
+          const int r = idx / (BN / 8), c8 = (idx % (BN / 8)) * 8;
+          *reinterpret_cast<uint4*>(Bs + r * LDS_KN + c8) = rb[nb][s];
+        } else {
+          const int r = idx / (BK / 8), c8 = (idx % (BK / 8)) * 8;
+          *reinterpret_cast<uint4*>(Bs + (nb * BN + r) * LDS + c8) = rb[nb][s];
+        }
       }
   };
 
@@ -224,8 +254,14 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(Args args) {
       for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const bf16* bp = Bs + (nb * BN + wn * 32 + j * 8 + g) * LDS + kk * 16 + 2 * t;
-          const uint32_t b0 = ld32(bp), b1 = ld32(bp + 8);
+          uint32_t b0, b1;
+          if constexpr (WKN) {
+            ldsm_x2_trans(b0, b1, Bs + (kk * 16 + (lane & 15)) * LDS_KN + wn * 32 + j * 8);
+          } else {
+            const bf16* bp = Bs + (nb * BN + wn * 32 + j * 8 + g) * LDS + kk * 16 + 2 * t;
+            b0 = ld32(bp);
+            b1 = ld32(bp + 8);
+          }
 #pragma unroll
           for (int i = 0; i < 2; ++i) mma_16816(acc[nb][i][j], af[i], b0, b1);
         }
@@ -251,6 +287,8 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(Args args) {
           store2(args.out[z] +
                      (((size_t)n * args.heads + hh) * args.seq + l) * args.head_dim + d,
                  v0 * s, v1 * s);
+        } else if (EPI == kEpiPlain) {
+          store2(args.out[0] + (size_t)gr * N + gc, v0, v1);
         } else if (EPI == kEpiResid) {
           const size_t o = (size_t)gr * N + gc;
           const __nv_bfloat162 r2 = *reinterpret_cast<const __nv_bfloat162*>(args.resid + o);
@@ -267,14 +305,14 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(Args args) {
       }
 }
 
-template <int AMODE, int EPI>
+template <int AMODE, int EPI, bool WKN = false>
 cudaError_t launch(const Args& args, int nz, cudaStream_t stream) {
   constexpr int NB = (EPI == kEpiGeglu) ? 2 : 1;
   constexpr size_t bytes = smem_bytes<NB>();
   static_assert(bytes <= 48 * 1024, "gemm tile exceeds default shared memory");
   if (args.N % 8 != 0 || args.K % 8 != 0) return cudaErrorInvalidValue;
   dim3 grid((args.N + BN - 1) / BN, (args.M + BM - 1) / BM, nz);
-  gemm_kernel<AMODE, EPI><<<grid, kThreads, bytes, stream>>>(args);
+  gemm_kernel<AMODE, EPI, WKN><<<grid, kThreads, bytes, stream>>>(args);
   return cudaGetLastError();
 }
 

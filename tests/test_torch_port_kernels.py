@@ -13,8 +13,13 @@ within 5 % of the rms of what the kernel computes: the output for
 attention and its gradients, and ``out - x`` for the residual blocks. The
 f32 outputs (lse, dbias) have no half step to take off; the lse is also
 held within 2e-2 absolute (the bf16-rounded P the forward normalises by
-moves it by at most ~2^-8).
+moves it by at most ~2^-8). The microbenchmark's f32 kernels get f32
+checks: the f32 matmul within relative L2 1e-5 of the product in float64
+(f32 accumulation over k <= 1024), exp within 1e-6 relative of exp in
+float64 (``expf`` is within 2 ulp).
 """
+
+import math
 
 import pytest
 import torch
@@ -34,6 +39,7 @@ from mvldm_tpu_torch.ops.fused_attn import (
     fused_ln_self_attention_reference,
 )
 from mvldm_tpu_torch.ops.fused_ff import fused_ln_geglu_ff, fused_ln_geglu_ff_reference
+from mvldm_tpu_torch.tools import bench_attn_micro as micro
 
 pytestmark = pytest.mark.cuda
 REL_LIMIT = 0.05
@@ -70,6 +76,7 @@ def _randn(gen, *shape, scale=1.0, device):
     (2, 3, 64, 64, 64, False),
     (1, 2, 77, 200, 80, True),
     (1, 2, 64, 190, 160, False),
+    (1, 2, 90, 150, 128, True),
     (1, 1, 130, 130, 512, False),
 ])
 def test_flash_attention(cuda, b, h, lq, lk, d, with_bias):
@@ -213,3 +220,81 @@ def test_attention_autograd_uses_bwd_kernels(cuda):
                                    return_lse=True)[1], g)
     for t, w in zip((q, k, v), want[:3]):
         torch.testing.assert_close(t.grad, w, atol=0, rtol=0)
+
+
+# ------------------------------------------- attention microbenchmark kernels
+
+@pytest.mark.parametrize("m,n,k", [(256, 128, 128), (200, 72, 40), (4096, 1024, 1024)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_micro_matmul(cuda, m, n, k, dtype):
+    gen = torch.Generator().manual_seed(m + n + k)
+    a = torch.randn((m, k), generator=gen).to(cuda, dtype)
+    b = torch.randn((k, n), generator=gen).to(cuda, dtype)
+    before = micro.matmul.launches
+    out = micro.matmul(a, b)
+    torch.cuda.synchronize()
+    assert micro.matmul.launches == before + 1
+    assert out.dtype == dtype and out.shape == (m, n)
+    if dtype == torch.float32:
+        ref = a.double() @ b.double()
+        assert (torch.linalg.norm(out.double() - ref) / torch.linalg.norm(ref)).item() <= 1e-5
+    else:
+        assert_kernel_close(out, micro.matmul_reference(a.float(), b.float()))
+
+
+@pytest.mark.parametrize("shape", [(1024, 1024), (37, 5)])
+def test_micro_exp(cuda, shape):
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(0)).to(cuda)
+    before = micro.exp.launches
+    out = micro.exp(x)
+    torch.cuda.synchronize()
+    assert micro.exp.launches == before + 1
+    ref = torch.exp(x.double())
+    assert ((out.double() - ref).abs() / ref).max().item() <= 1e-6
+
+
+def _micro_qkv(cuda, b, h, lq, lk, d):
+    gen = torch.Generator().manual_seed(d + lq + lk)
+    return tuple(_randn(gen, b, h, n, d, device=cuda) for n in (lq, lk, lk))
+
+
+# (lq, lk): aligned, ragged (not a multiple of the 64-row tiles), and more
+# keys than queries.
+MICRO_LENGTHS = [(256, 256), (200, 200), (100, 300)]
+
+
+@pytest.mark.parametrize("lq,lk", MICRO_LENGTHS)
+@pytest.mark.parametrize("d", [40, 80, 128, 160])
+@pytest.mark.parametrize("dot_dtype", [torch.bfloat16, torch.float32])
+def test_micro_flash(cuda, lq, lk, d, dot_dtype):
+    q, k, v = _micro_qkv(cuda, 2, 2, lq, lk, d)
+    scale = 1.0 / math.sqrt(d)
+    before = micro.flash.launches
+    out = micro.flash(q, k, v, scale, dot_dtype=dot_dtype)
+    torch.cuda.synchronize()
+    assert micro.flash.launches == before + 1
+    assert_kernel_close(out, micro.flash_reference(q.float(), k.float(), v.float(), scale,
+                                                   dot_dtype))
+
+
+@pytest.mark.parametrize("lq,lk", MICRO_LENGTHS)
+@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("do_max", [True, False, "none"])
+def test_micro_fullk(cuda, lq, lk, d, do_max):
+    q, k, v = _micro_qkv(cuda, 2, 2, lq, lk, d)
+    scale = 1.0 / math.sqrt(d)
+    before = micro.fullk.launches
+    out = micro.fullk(q, k, v, scale, do_max=do_max)
+    torch.cuda.synchronize()
+    assert micro.fullk.launches == before + 1
+    assert_kernel_close(out, micro.fullk_reference(q.float(), k.float(), v.float(), scale,
+                                                   do_max))
+
+
+def test_micro_attention_refuses_unserved_head_dims(cuda):
+    q = torch.zeros(1, 1, 64, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        micro.fullk(q, q, q, 0.1)
+    q = torch.zeros(1, 1, 64, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        micro.flash(q, q, q, 0.1)
