@@ -14,7 +14,9 @@ Phases, each fatal on failure (non-zero exit, no final result line):
    bytes / 3.35 TB/s) of an H100 SXM, and for attention the time of
    torch's scaled_dot_product_attention (its backward for the backward
    kernels) as a yardstick. The backward phase covers every attention
-   shape of a training step and also holds the forward's lse output.
+   shape of a training step, also holds the forward's lse output, and
+   puts each backward kernel's exp floor (its exp2 at 16 a clock on each
+   of the card's SMs) beside its bound on every shape's line.
 3. the microbenchmark path (mvldm_tpu_torch.tools.bench_attn_micro):
    every section (matmul exp flash fullk floor) at the tool's shapes, as
    ``python -m mvldm_tpu_torch.tools.bench_attn_micro`` runs them, with
@@ -62,7 +64,17 @@ import time
 import numpy as np
 import torch
 
-from mvldm_tpu_torch.tools.measure import bound, card_line, event_ms, nbytes, time_ms
+from mvldm_tpu_torch.tools.measure import (
+    bound,
+    card_line,
+    error_record,
+    exp_floor_ms,
+    nbytes,
+    sdpa_bwd_ms,
+    sm_clock_mhz,
+    sm_count,
+    time_ms,
+)
 
 # A kernel's own error, as a share of the rms of what it computes (see check).
 KERNEL_REL_LIMIT = 0.05
@@ -93,20 +105,10 @@ def check(out, ref, what: str, residual=None) -> dict:
     the rms of what the kernel computes: the output for attention, and
     ``out - x`` for a residual block, whose x (~1) would otherwise hide an
     error as large as the block's own contribution (~0.1)."""
-    o = out.float()
-    _, e = torch.frexp(o)
-    half_step = torch.where(o == 0, torch.zeros_like(o),
-                            torch.ldexp(torch.ones_like(o), e - 9))
-    if out.dtype == torch.float32:  # the lse and dbias outputs
-        half_step = torch.zeros_like(o)
-    err = (o - ref).abs()
-    own = (err - half_step).clamp_min(0).max().item()
-    delta = ref if residual is None else ref - residual.float()
-    rms = delta.square().mean().sqrt().item()
-    rec = dict(max_abs_err=err.max().item(), kernel_err=own,
-               kernel_err_limit=KERNEL_REL_LIMIT * rms, rms_computed=rms,
-               err_over_rms=own / rms)
-    if not torch.isfinite(o).all() or not own <= KERNEL_REL_LIMIT * rms:
+    rec = error_record(out, ref, residual)
+    own, rms = rec["kernel_err"], rec["rms_computed"]
+    rec["kernel_err_limit"] = KERNEL_REL_LIMIT * rms
+    if not torch.isfinite(out.float()).all() or not own <= KERNEL_REL_LIMIT * rms:
         fail(f"{what}: kernel error {own:.4g} (max abs {rec['max_abs_err']:.4g}) "
              f"outside {KERNEL_REL_LIMIT} x rms {rms:.4g}")
     return rec
@@ -246,9 +248,10 @@ def flash_bwd_phase(card: str, gen) -> dict:
     of a training step (batch 2 x 5 views), against the plain chunked
     backward; times of each kernel, of the plain backward and of
     scaled_dot_product_attention's backward (its forward + backward less
-    its forward, with the same float mask)."""
-    import torch.nn.functional as F
-
+    its forward, with the same float mask). Beside each kernel's bound, its
+    exp floor: the B H Lq Lk exp2 that each kernel takes (both rebuild P)
+    at 16 a clock on each of the card's SMs, at the SM clock read just
+    after its timing."""
     from mvldm_tpu_torch.ops.attention import (
         attention_bwd_reference,
         attention_reference_lse,
@@ -256,33 +259,13 @@ def flash_bwd_phase(card: str, gen) -> dict:
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
     )
+    from mvldm_tpu_torch.tools.flash_bwd_compare import TRAIN_SHAPES, train_inputs
 
-    # (label, B, H, L, D, bias): B = 2 examples for the joint attention,
-    # 2 x 5 frames for the per-frame ones.
-    cases = [
-        ("joint 32x32 (C=320)", 2, 8, 5 * 1024, 40, True),
-        ("joint 16x16 (C=640)", 2, 8, 5 * 256, 80, True),
-        ("joint 8x8 (C=1280)", 2, 8, 5 * 64, 160, True),
-        ("joint 4x4 (C=1280)", 2, 8, 5 * 16, 160, True),
-        ("SD attn1 32x32 (C=320)", 10, 5, 1024, 64, False),
-        ("SD attn1 16x16 (C=640)", 10, 10, 256, 64, False),
-        ("SD attn1 8x8 (C=1280)", 10, 20, 64, 64, False),
-        ("SD attn1 4x4 (C=1280)", 10, 20, 16, 64, False),
-        ("per-frame attn2 32x32 (C=320)", 10, 8, 1024, 40, False),
-        ("per-frame attn2 16x16 (C=640)", 10, 8, 256, 80, False),
-        ("per-frame attn2 8x8 (C=1280)", 10, 8, 64, 160, False),
-        ("per-frame attn2 4x4 (C=1280)", 10, 8, 16, 160, False),
-    ]
+    n_sms = sm_count()
     out_recs = {}
     max_err = {"flash_attention_bwd_dq": 0.0, "flash_attention_bwd_dkv": 0.0}
-    for label, b, h, l, d, with_bias in cases:
-        q, k, v, g = (torch.randn((b, h, l, d), generator=gen, device="cuda",
-                                  dtype=torch.bfloat16) for _ in range(4))
-        bias = None
-        if with_bias:
-            # An unconditional row masks its context view out of the keys.
-            bias = torch.zeros((b, l), device="cuda")
-            bias[1:, : l // 5] = -1e30
+    for label, b, h, l, d, with_bias in TRAIN_SHAPES:
+        q, k, v, g, bias = train_inputs(gen, b, h, l, d, with_bias)
         out, lse = flash_attention(q, k, v, bias, return_lse=True)
         _, ref_lse = attention_reference_lse(q.float(), k.float(), v.float(), bias)
         acc = {"lse": check(lse, ref_lse, f"flash_attention lse {label}")}
@@ -302,15 +285,10 @@ def flash_bwd_phase(card: str, gen) -> dict:
         iters = 10 if l >= 1024 else 50
         dq_ms = time_ms(lambda: flash_attention_bwd_dq(q, k, v, bias, out, lse, g), iters)
         dkv_ms = time_ms(lambda: flash_attention_bwd_dkv(q, k, v, bias, lse, delta, g), iters)
+        sm_mhz = sm_clock_mhz()
+        exp_ms = exp_floor_ms(b * h * l * l, sm_mhz, n_sms)
         plain_ms = time_ms(lambda: attention_bwd_reference(q, k, v, bias, g), 3)
-        mask = None if bias is None else bias[:, None, None, :].to(q.dtype)
-        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-
-        def lib_fwd():
-            return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
-
-        lib_ms = (event_ms(lambda: torch.autograd.grad(lib_fwd(), (qg, kg, vg), g), iters)
-                  - event_ms(lib_fwd, iters))
+        lib_ms = sdpa_bwd_ms(q, k, v, bias, g, iters)
         work = b * h * l * l * d
         dq_bound = bound(6.0 * work, nbytes(q, k, v, out, g, lse, bias, dq, delta))
         dkv_bound = bound(8.0 * work, nbytes(q, k, v, g, lse, delta, bias, dk, dv, dbias))
@@ -320,7 +298,8 @@ def flash_bwd_phase(card: str, gen) -> dict:
                    dq_ms=dq_ms, dkv_ms=dkv_ms, bwd_ms=dq_ms + dkv_ms, plain_ms=plain_ms,
                    library_ms=lib_ms, dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
                    dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1],
-                   bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1], card=card)
+                   bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1], sm_mhz=sm_mhz,
+                   n_sms=n_sms, dq_exp_floor_ms=exp_ms, dkv_exp_floor_ms=exp_ms, card=card)
         emit(**rec)
         if not out_recs:
             common = dict(shape=label, plain_ms=plain_ms, library_ms=lib_ms)
@@ -328,7 +307,7 @@ def flash_bwd_phase(card: str, gen) -> dict:
                 common, ms=dq_ms, bound_ms=dq_bound[0], bound_by=dq_bound[1])
             out_recs["flash_attention_bwd_dkv"] = dict(
                 common, ms=dkv_ms, bound_ms=dkv_bound[0], bound_by=dkv_bound[1])
-        del q, k, v, g, out, lse, dq, dk, dv, dbias, qg, kg, vg
+        del q, k, v, g, out, lse, dq, dk, dv, dbias
         torch.cuda.empty_cache()
     return {name: dict(rec, max_abs_err=max_err[name]) for name, rec in out_recs.items()}
 

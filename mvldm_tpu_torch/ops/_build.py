@@ -98,12 +98,18 @@ def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        for fn, argtypes in signatures.items():
-            f = getattr(lib, fn)
-            f.argtypes = list(argtypes)
-            f.restype = ctypes.c_int
-        _LIBS[name] = lib
+        lib = _LIBS[name] = open_lib(_lib_path(name), signatures)
+    return lib
+
+
+def open_lib(path: Path, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
+    """Load the built library at ``path`` and declare each C entry of
+    ``signatures`` with its ``argtypes`` and an ``int`` (CUDA error) return."""
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in signatures.items():
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
     return lib
 
 

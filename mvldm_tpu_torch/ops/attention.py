@@ -203,6 +203,30 @@ def _check_bwd(q, k, v, bias, lse, g, what):
     _f32_rows(lse, q, "lse", what)
 
 
+def _launch_bwd_dq(lib, q, k, v, bias, out, lse, g, delta, dq, scale: float) -> None:
+    """Launch ``lib``'s dQ entry on the current stream (no checks, no
+    count); ``lib`` is a build of ``csrc/flash_attn_bwd.cu``."""
+    b, h, lq, d = q.shape
+    err = lib.mvldm_flash_attn_bwd_dq(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+        _build.ptr(g), _build.ptr(lse), _optr(bias), _build.ptr(delta),
+        _build.ptr(dq), b, h, lq, k.shape[2], d, float(scale),
+        _build.stream_ptr(q.device))
+    _build.check(err, f"mvldm_flash_attn_bwd_dq (head dim {d})")
+
+
+def _launch_bwd_dkv(lib, q, k, v, bias, lse, delta, g, dk, dv, dbias, scale: float) -> None:
+    """Launch ``lib``'s dK/dV entry on the current stream (no checks, no
+    count)."""
+    b, h, lq, d = q.shape
+    err = lib.mvldm_flash_attn_bwd_dkv(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(g),
+        _build.ptr(lse), _build.ptr(delta), _optr(bias), _build.ptr(dk),
+        _build.ptr(dv), _optr(dbias), b, h, lq, k.shape[2], d, float(scale),
+        _build.stream_ptr(q.device))
+    _build.check(err, f"mvldm_flash_attn_bwd_dkv (head dim {d})")
+
+
 def flash_attention_bwd_dq(q, k, v, bias, out, lse, g, scale=None):
     """dQ kernel. Returns (dq, delta): delta = rowsum(g * out), f32
     (B, H, Lq), computed in the kernel's prologue for the dK/dV kernel."""
@@ -211,16 +235,10 @@ def flash_attention_bwd_dq(q, k, v, bias, out, lse, g, scale=None):
     _check_cuda(what, q, out=out)
     if out.shape != q.shape:
         raise ValueError(f"{what}: out shape {tuple(out.shape)} != {tuple(q.shape)}")
-    lib = _build.load("flash_attn_bwd", _BWD_SIGNATURES)
-    b, h, lq, d = q.shape
     dq = torch.empty_like(q)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    err = lib.mvldm_flash_attn_bwd_dq(
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-        _build.ptr(g), _build.ptr(lse), _optr(bias), _build.ptr(delta),
-        _build.ptr(dq), b, h, lq, k.shape[2], d, float(_scale(q, scale)),
-        _build.stream_ptr(q.device))
-    _build.check(err, f"mvldm_flash_attn_bwd_dq (head dim {d})")
+    _launch_bwd_dq(_build.load("flash_attn_bwd", _BWD_SIGNATURES), q, k, v, bias, out,
+                   lse, g, delta, dq, _scale(q, scale))
     flash_attention_bwd_dq.launches += 1
     return dq, delta
 
@@ -236,20 +254,13 @@ def flash_attention_bwd_dkv(q, k, v, bias, lse, delta, g, scale=None,
     what = "flash_attention_bwd_dkv"
     _check_bwd(q, k, v, bias, lse, g, what)
     _f32_rows(delta, q, "delta", what)
-    lib = _build.load("flash_attn_bwd", _BWD_SIGNATURES)
-    b, h, lq, d = q.shape
-    lk = k.shape[2]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     dbias = None
     if bias is not None and need_dbias:
-        dbias = torch.empty((b, h, lk), dtype=torch.float32, device=q.device)
-    err = lib.mvldm_flash_attn_bwd_dkv(
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(g),
-        _build.ptr(lse), _build.ptr(delta), _optr(bias), _build.ptr(dk),
-        _build.ptr(dv), _optr(dbias), b, h, lq, lk, d,
-        float(_scale(q, scale)), _build.stream_ptr(q.device))
-    _build.check(err, f"mvldm_flash_attn_bwd_dkv (head dim {d})")
+        dbias = torch.empty(k.shape[:3], dtype=torch.float32, device=q.device)
+    _launch_bwd_dkv(_build.load("flash_attn_bwd", _BWD_SIGNATURES), q, k, v, bias, lse,
+                    delta, g, dk, dv, dbias, _scale(q, scale))
     flash_attention_bwd_dkv.launches += 1
     return dk, dv, dbias
 

@@ -1,5 +1,6 @@
-"""Device timing and lower bounds on one NVIDIA H100, shared by
-``chip_smoke.py`` and :mod:`mvldm_tpu_torch.tools.bench_attn_micro`.
+"""Device timing, lower bounds and error records on one NVIDIA H100,
+shared by ``chip_smoke.py``, :mod:`mvldm_tpu_torch.tools.bench_attn_micro`
+and :mod:`mvldm_tpu_torch.tools.flash_bwd_compare`.
 
 Peaks are the H100 SXM's published dense rates at its full 700 W power
 limit; a card set below it runs slower, so every time is reported beside
@@ -17,6 +18,7 @@ PEAK_BF16_FLOPS = 989e12  # bf16 tensor cores (mma / wgmma)
 PEAK_TF32_FLOPS = 495e12  # TF32 tensor cores
 PEAK_FP32_FLOPS = 67e12   # f32 FFMA outside the tensor cores
 PEAK_BYTES = 3.35e12      # HBM3
+EXP2_PER_CLOCK_PER_SM = 16  # MUFU ex2 (CUDA arithmetic-throughput table, sm_90)
 TARGET_MS = 50.0  # device time a replay of an unsized timing fills
 
 
@@ -26,6 +28,26 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_mhz() -> float:
+    """The card's current SM clock in MHz (``nvidia-smi --query-gpu=clocks.sm``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def sm_count() -> int:
+    """The card's number of SMs."""
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def exp_floor_ms(n_exp: float, sm_mhz: float, n_sms: int) -> float:
+    """The least time in ms for ``n_exp`` exp2 on the card's special-function
+    units at ``sm_mhz``: EXP2_PER_CLOCK_PER_SM per clock on each of ``n_sms``
+    SMs (:func:`sm_count`)."""
+    return n_exp / (EXP2_PER_CLOCK_PER_SM * n_sms * sm_mhz * 1e6) * 1e3
 
 
 def time_ms(fn: Callable[[], object], iters: Optional[int] = None) -> float:
@@ -72,6 +94,47 @@ def event_ms(fn: Callable[[], object], iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def own_error(out, ref) -> float:
+    """A kernel's own error against its f32 plain version: the largest
+    ``|out - ref|`` less half a bf16 step of ``out`` (a bf16 output cannot
+    come closer than that; nothing is taken off an f32 output)."""
+    o = out.float()
+    err = (o - ref).abs()
+    if out.dtype != torch.float32:
+        _, e = torch.frexp(o)
+        err = err - torch.where(o == 0, torch.zeros_like(o),
+                                torch.ldexp(torch.ones_like(o), e - 9))
+    return err.clamp_min(0).max().item()
+
+
+def error_record(out, ref, residual=None) -> dict:
+    """A kernel output against its f32 plain version: the largest absolute
+    error, the own error (:func:`own_error`), the rms of what the kernel
+    computes (``ref``, or ``ref - residual`` for a residual block) and the
+    own error over that rms."""
+    own = own_error(out, ref)
+    delta = ref if residual is None else ref - residual.float()
+    rms = delta.square().mean().sqrt().item()
+    return dict(max_abs_err=(out.float() - ref).abs().max().item(), kernel_err=own,
+                rms_computed=rms, err_over_rms=own / rms)
+
+
+def sdpa_bwd_ms(q, k, v, bias, g, iters: int) -> float:
+    """scaled_dot_product_attention's backward on (B, H, L, D) inputs with
+    output gradient ``g`` and an optional (B, Lk) float bias as its mask:
+    its forward + backward less its forward, by :func:`event_ms`."""
+    import torch.nn.functional as F
+
+    mask = None if bias is None else bias[:, None, None, :].to(q.dtype)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def fwd():
+        return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+
+    return (event_ms(lambda: torch.autograd.grad(fwd(), (qg, kg, vg), g), iters)
+            - event_ms(fwd, iters))
 
 
 def nbytes(*tensors) -> int:

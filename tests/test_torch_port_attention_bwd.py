@@ -25,6 +25,7 @@ from mvldm_tpu.ops.fused_ff import fused_ln_geglu_ff as jax_fused_ff
 from mvldm_tpu_torch.ops import attention as port_attn
 from mvldm_tpu_torch.ops.fused_attn import fused_ln_self_attention
 from mvldm_tpu_torch.ops.fused_ff import fused_ln_geglu_ff
+from mvldm_tpu_torch.tools import flash_bwd_compare, measure
 
 from tests.test_torch_port_ops import _attn_inputs, _bias, _ff_inputs, _qkv, _t
 
@@ -135,3 +136,83 @@ def test_no_grad_path_is_forward_only():
         out = port_attn.attention(q.requires_grad_(), k, v)
     assert out.grad_fn is None
     assert torch.equal(out, port_attn.attention_reference(q.detach(), k, v))
+
+
+@pytest.mark.parametrize("which", ["dq", "dkv"])
+def test_bwd_kernel_wrappers_refuse_cpu_tensors(monkeypatch, which):
+    """The kernel wrappers take CUDA tensors only: on CPU tensors they raise
+    before building or loading a library, with no hidden fallback to the
+    plain backward."""
+    def no_build(*args, **kwargs):
+        raise AssertionError("a kernel library was built or loaded")
+
+    monkeypatch.setattr(port_attn._build, "load", no_build)
+    monkeypatch.setattr(port_attn._build, "build", no_build)
+    q, k, v = (_t(a).to(torch.bfloat16) for a in _qkv(0, 1, 2, 16, 24, 8))
+    g = torch.zeros_like(q)
+    lse = torch.zeros(q.shape[:3])
+    before = (port_attn.flash_attention_bwd_dq.launches,
+              port_attn.flash_attention_bwd_dkv.launches)
+    with pytest.raises(ValueError, match="must be on"):
+        if which == "dq":
+            port_attn.flash_attention_bwd_dq(q, k, v, None, q, lse, g)
+        else:
+            port_attn.flash_attention_bwd_dkv(q, k, v, None, lse, lse, g)
+    assert (port_attn.flash_attention_bwd_dq.launches,
+            port_attn.flash_attention_bwd_dkv.launches) == before
+
+
+def test_bwd_compare_tool_needs_a_card(capsys):
+    """The one-call comparison of two backward builds exits non-zero, with
+    no result line, where there is no CUDA device."""
+    assert flash_bwd_compare.main(["--other", "."]) == 2
+    assert capsys.readouterr().out == ""
+
+
+def test_bwd_compare_tool_covers_the_training_shapes():
+    """Its shapes are every attention of a training step: the joint one at
+    each resolution with the view bias, the two per-frame ones without."""
+    shapes = flash_bwd_compare.TRAIN_SHAPES
+    assert len({label for label, *_ in shapes}) == len(shapes) == 12
+    for label, b, h, l, d, with_bias in shapes:
+        assert with_bias == label.startswith("joint")
+        if with_bias:
+            assert b == 2 and l % 5 == 0  # 2 examples x 5 views
+        else:
+            assert b == 10  # 2 examples x 5 frames
+        assert d in (40, 64, 80, 160)
+
+
+@pytest.mark.parametrize("n_exp,mhz,n_sms,want_ms", [
+    (2 * 8 * 5120 * 5120, 1980.0, 132, 0.10029996939),
+    (16 * 132 * 1000, 1000.0, 132, 1e-3),
+    (16 * 114 * 1000, 1000.0, 114, 1e-3),
+])
+def test_exp_floor(n_exp, mhz, n_sms, want_ms):
+    """16 exp2 a clock on each of the card's SMs."""
+    assert measure.exp_floor_ms(n_exp, mhz, n_sms) == pytest.approx(want_ms, rel=1e-9)
+
+
+def test_error_record_of_a_residual_block():
+    """The rms is taken of what the block adds to its residual, and the own
+    error is charged against that."""
+    x = torch.ones(4)
+    ref = x + torch.tensor([0.1, -0.1, 0.1, -0.1])
+    rec = measure.error_record(ref + torch.tensor([0.0, 0.0, 0.0, 0.01]), ref, x)
+    assert rec["rms_computed"] == pytest.approx(0.1)
+    assert rec["kernel_err"] == pytest.approx(0.01, abs=1e-6)
+    assert rec["err_over_rms"] == pytest.approx(0.1, rel=1e-4)
+    assert measure.error_record(ref, ref)["err_over_rms"] == 0.0
+
+
+def test_own_error_takes_off_half_a_bf16_step():
+    """A bf16 output is charged only what lies past half a bf16 step of
+    itself; an f32 output is charged its whole error."""
+    ref = torch.tensor([1.0, -3.0, 0.0, 100.0])
+    step = torch.tensor([2.0 ** -8, 2.0 ** -7, 0.0, 2.0 ** -2])  # half steps at 1, 3, 0, 100
+    within = (ref + step).to(torch.bfloat16)
+    assert measure.own_error(within, ref) == 0.0
+    off = ref.clone()
+    off[3] += 1.0
+    assert measure.own_error(off.to(torch.bfloat16), ref) == pytest.approx(1.0 - 2.0 ** -2)
+    assert measure.own_error(off, ref) == 1.0

@@ -151,6 +151,18 @@ BWD_SHAPES = [
     (2, 2, 77, 200, 80, True),
     (1, 2, 130, 190, 160, True),
     (2, 1, 16, 16, 160, False),
+    # the kernels' tile and ring edges: blocks of 128 rows, streamed tiles of
+    # 64 (32 queries at D = 160) through a ring of 3 stages. Lk one past a
+    # block, Lq over more tiles than the ring has stages, Lq != Lk, and one
+    # case for each instance (D rounded up to 32, 40, 64, 80 or 160).
+    (1, 2, 100, 129, 40, True),
+    (1, 2, 323, 257, 64, False),
+    (1, 2, 323, 150, 80, True),
+    (1, 2, 200, 129, 160, True),
+    (1, 3, 90, 129, 32, False),
+    (1, 2, 70, 70, 48, True),
+    # the joint 32x32 training attention at batch 1
+    (1, 8, 5120, 5120, 40, True),
 ]
 
 
@@ -220,6 +232,18 @@ def test_attention_autograd_uses_bwd_kernels(cuda):
                                    return_lse=True)[1], g)
     for t, w in zip((q, k, v), want[:3]):
         torch.testing.assert_close(t.grad, w, atol=0, rtol=0)
+
+
+def test_flash_attention_bwd_is_deterministic(cuda):
+    """Two backward calls on the same inputs agree bit for bit: no atomics,
+    a fixed order of every sum."""
+    q, k, v, g, bias = _bwd_inputs(cuda, 2, 2, 323, 257, 40, True)
+    out, lse = flash_attention(q, k, v, bias, return_lse=True)
+    first = flash_attention_bwd(q, k, v, bias, out, lse, g)
+    second = flash_attention_bwd(q, k, v, bias, out, lse, g)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 # ------------------------------------------- attention microbenchmark kernels
