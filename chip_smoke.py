@@ -13,10 +13,15 @@ Phases, each fatal on failure (non-zero exit, no final result line):
    replay between CUDA events), the lower bound max(flops / 989 TFLOP/s,
    bytes / 3.35 TB/s) of an H100 SXM, and for attention the time of
    torch's scaled_dot_product_attention (its backward for the backward
-   kernels) as a yardstick. The backward phase covers every attention
-   shape of a training step, also holds the forward's lse output, and
-   puts each backward kernel's exp floor (its exp2 at 16 a clock on each
-   of the card's SMs) beside its bound on every shape's line.
+   kernels) as a yardstick. Each forward line and each backward shape's
+   line carries the kernel's exp floor (its B H Lq Lk exp2 at 16 a clock on
+   each of the card's SMs) beside its bound; the backward phase covers
+   every attention shape of a training step and also holds the forward's
+   lse output. Each fused block's line also carries the decomposed cuBLAS
+   path's time on the same inputs (``decomposed_ms``; no single PyTorch
+   call computes the fused function) and each of its GEMM launches on its
+   own: own error, device time, bound and the cuBLAS product of the same
+   operands.
 3. the microbenchmark path (mvldm_tpu_torch.tools.bench_attn_micro):
    every section (matmul exp flash fullk floor) at the tool's shapes, as
    ``python -m mvldm_tpu_torch.tools.bench_attn_micro`` runs them, with
@@ -120,35 +125,20 @@ def attention_phase(card: str, gen) -> dict:
     import torch.nn.functional as F
 
     from mvldm_tpu_torch.ops.attention import attention_reference, flash_attention
+    from mvldm_tpu_torch.tools.kernel_compare import SAMPLING_SHAPES, attn_inputs
 
-    # (label, B, H, L, D, bias): B counts batch rows (2 = batched CFG).
-    cases = [
-        ("joint 32x32 anchor (C=320)", 2, 8, 5 * 1024, 40, True),
-        ("joint 16x16 anchor (C=640)", 2, 8, 5 * 256, 80, True),
-        ("joint 8x8 anchor (C=1280)", 2, 8, 5 * 64, 160, True),
-        ("joint 4x4 anchor (C=1280)", 2, 8, 5 * 16, 160, True),
-        ("joint 32x32 fill (C=320)", 4, 8, 5 * 1024, 40, False),
-        ("SD attn1 8x8 (C=1280)", 20, 20, 64, 64, False),
-        ("SD attn1 4x4 (C=1280)", 20, 20, 16, 64, False),
-        ("per-frame attn2 8x8 (C=1280)", 20, 8, 64, 160, False),
-        ("VAE mid-block 32x32", 12, 1, 1024, 512, False),
-    ]
+    n_sms = sm_count()
     headline = None
     max_err = 0.0
-    for label, b, h, l, d, with_bias in cases:
-        q, k, v = (torch.randn((b, h, l, d), generator=gen, device="cuda",
-                               dtype=torch.bfloat16) for _ in range(3))
-        bias = None
-        if with_bias:
-            # Batched CFG: row 1 masks its context view out of the keys.
-            bias = torch.zeros((b, l), device="cuda")
-            bias[1:, : l // 5] = -1e30
+    for label, b, h, l, d, with_bias in SAMPLING_SHAPES:
+        q, k, v, bias = attn_inputs(gen, b, h, l, d, with_bias)
         out = flash_attention(q, k, v, bias)
         ref = attention_reference(q.float(), k.float(), v.float(), bias)
         acc = check(out, ref, f"flash_attention {label}")
         max_err = max(max_err, acc["max_abs_err"])
         iters = 20 if l >= 1024 else 100
         ms = time_ms(lambda: flash_attention(q, k, v, bias), iters)
+        sm_mhz = sm_clock_mhz()
         plain_ms = time_ms(lambda: attention_reference(q, k, v, bias), 3)
         mask = None if bias is None else bias[:, None, None, :].to(q.dtype)
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
@@ -157,7 +147,8 @@ def attention_phase(card: str, gen) -> dict:
         rec = dict(phase="kernel", kernel="flash_attention", shape=label,
                    B=b, H=h, L=l, D=d, bias=with_bias, **acc, ms=ms,
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, card=card)
+                   bound_by=bound_by, sm_mhz=sm_mhz, n_sms=n_sms,
+                   exp_floor_ms=exp_floor_ms(b * h * l * l, sm_mhz, n_sms), card=card)
         emit(**rec)
         headline = headline or rec
         del q, k, v, out, ref
@@ -165,36 +156,47 @@ def attention_phase(card: str, gen) -> dict:
     return dict(headline, max_abs_err=max_err)
 
 
-def _linear_t(gen, out_f: int, in_f: int):
-    """A torch-Linear-layout bf16 weight, returned as its (in, out) view."""
-    w = torch.randn((out_f, in_f), generator=gen, device="cuda") * in_f ** -0.5
-    return w.to(torch.bfloat16).t()
+def gemm_launches(calls) -> list:
+    """Each GEMM launch of a fused block on its own (kernel_compare's
+    GemmCall): this tree's kernel held against its plain version, its
+    device time, its bound and the cuBLAS product of the same operands."""
+    from mvldm_tpu_torch.ops import _build
+    from mvldm_tpu_torch.tools.kernel_compare import SIGNATURES, gemm_error
+
+    recs = []
+    for call in calls:
+        lib = _build.load(call.source, SIGNATURES[call.source])
+        call.run(lib)
+        err = gemm_error(call)
+        if not err <= KERNEL_REL_LIMIT or not all(torch.isfinite(o.float()).all()
+                                                  for o in call.outs):
+            fail(f"{call.entry} {call.shape}: own error over rms {err:.4g}")
+        bound_ms, bound_by = bound(call.flops, call.moved)
+        recs.append(dict(entry=call.entry, ms=time_ms(lambda: call.run(lib)),
+                         cublas_ms=time_ms(call.library), bound_ms=bound_ms,
+                         bound_by=bound_by, err_over_rms=err))
+    return recs
 
 
 def fused_attn_phase(card: str, gen) -> dict:
     from mvldm_tpu_torch.ops.fused_attn import (
+        _attn_decomposed,
         fused_ln_self_attention,
         fused_ln_self_attention_reference,
     )
+    from mvldm_tpu_torch.tools.kernel_compare import (
+        ATTN_BLOCK_SHAPES,
+        attn_block_gemms,
+        attn_block_inputs,
+    )
 
-    # (label, N frames, L, C, heads, head_dim); N = 2 CFG rows x 5 views.
-    cases = [
-        ("SD attn1 32x32 (C=320)", 10, 1024, 320, 5, 64),
-        ("cross-view attn2 32x32 (C=320)", 10, 1024, 320, 8, 40),
-        ("SD attn1 16x16 (C=640)", 10, 256, 640, 10, 64),
-        ("cross-view attn2 16x16 (C=640)", 10, 256, 640, 8, 80),
-    ]
     headline = None
     max_err = 0.0
-    for label, n, l, c, heads, d in cases:
+    for label, n, l, c, heads, d in ATTN_BLOCK_SHAPES:
         hd = heads * d
-        x = torch.randn((n, l, c), generator=gen, device="cuda", dtype=torch.bfloat16)
-        g = torch.rand(c, generator=gen, device="cuda") + 0.5
-        b = torch.randn(c, generator=gen, device="cuda") * 0.1
-        wq, wk, wv = (_linear_t(gen, hd, c) for _ in range(3))
-        wo = _linear_t(gen, c, hd)
-        bo = torch.randn(c, generator=gen, device="cuda") * 0.1
-        args = (x, g, b, wq, wk, wv, wo, bo, heads, d)
+        inputs = attn_block_inputs(gen, n, l, c, heads, d)
+        x, g, b, wq, wk, wv, wo, bo = inputs
+        args = (*inputs, heads, d)
         out = fused_ln_self_attention(*args)
         ref = fused_ln_self_attention_reference(
             x.float(), g, b, wq.float(), wk.float(), wv.float(), wo.float(), bo, heads, d)
@@ -202,42 +204,51 @@ def fused_attn_phase(card: str, gen) -> dict:
         max_err = max(max_err, acc["max_abs_err"])
         ms = time_ms(lambda: fused_ln_self_attention(*args), 20)
         plain_ms = time_ms(lambda: fused_ln_self_attention_reference(*args), 3)
+        decomposed_ms = time_ms(lambda: _attn_decomposed(*args, 1e-6), 20)
         m = n * l
         flops = 2.0 * m * c * 3 * hd + 4.0 * n * heads * l * l * d + 2.0 * m * hd * c
         bound_ms, bound_by = bound(flops, nbytes(x, g, b, wq, wk, wv, wo, bo, out))
         rec = dict(phase="kernel", kernel="fused_ln_self_attention", shape=label,
                    N=n, L=l, C=c, H=heads, D=d, **acc, ms=ms, plain_ms=plain_ms,
-                   library_ms=None, bound_ms=bound_ms, bound_by=bound_by, card=card)
+                   library_ms=None, decomposed_ms=decomposed_ms, bound_ms=bound_ms,
+                   bound_by=bound_by,
+                   gemm_launches=gemm_launches(attn_block_gemms(label, *args, gen)),
+                   card=card)
         emit(**rec)
         headline = headline or rec
     return dict(headline, max_abs_err=max_err)
 
 
 def fused_ff_phase(card: str, gen) -> dict:
-    from mvldm_tpu_torch.ops.fused_ff import fused_ln_geglu_ff, fused_ln_geglu_ff_reference
+    from mvldm_tpu_torch.ops.fused_ff import (
+        fused_ln_geglu_ff,
+        fused_ln_geglu_ff_reference,
+        ln_geglu_ff_decomposed,
+    )
+    from mvldm_tpu_torch.tools.kernel_compare import (
+        FF_BLOCK_SHAPES,
+        ff_block_gemms,
+        ff_block_inputs,
+    )
 
-    cases = [("FF 32x32 (C=320)", 10, 1024, 320), ("FF 16x16 (C=640)", 10, 256, 640)]
     headline = None
     max_err = 0.0
-    for label, n, l, c in cases:
-        x = torch.randn((n, l, c), generator=gen, device="cuda", dtype=torch.bfloat16)
-        g = torch.rand(c, generator=gen, device="cuda") + 0.5
-        b = torch.randn(c, generator=gen, device="cuda") * 0.1
-        w1 = _linear_t(gen, 8 * c, c)
-        b1 = torch.randn(8 * c, generator=gen, device="cuda") * 0.1
-        w2 = _linear_t(gen, c, 4 * c)
-        b2 = torch.randn(c, generator=gen, device="cuda") * 0.1
-        args = (x, g, b, w1, b1, w2, b2)
+    for label, n, l, c in FF_BLOCK_SHAPES:
+        args = ff_block_inputs(gen, n, l, c)
+        x, g, b, w1, b1, w2, b2 = args
         out = fused_ln_geglu_ff(*args)
         ref = fused_ln_geglu_ff_reference(x.float(), g, b, w1.float(), b1, w2.float(), b2)
         acc = check(out, ref, f"fused_ln_geglu_ff {label}", residual=x)
         max_err = max(max_err, acc["max_abs_err"])
         ms = time_ms(lambda: fused_ln_geglu_ff(*args), 20)
         plain_ms = time_ms(lambda: fused_ln_geglu_ff_reference(*args), 3)
+        decomposed_ms = time_ms(lambda: ln_geglu_ff_decomposed(*args), 20)
         bound_ms, bound_by = bound(24.0 * n * l * c * c, nbytes(x, g, b, w1, b1, w2, b2, out))
         rec = dict(phase="kernel", kernel="fused_ln_geglu_ff", shape=label, N=n, L=l,
-                   C=c, **acc, ms=ms, plain_ms=plain_ms,
-                   library_ms=None, bound_ms=bound_ms, bound_by=bound_by, card=card)
+                   C=c, **acc, ms=ms, plain_ms=plain_ms, library_ms=None,
+                   decomposed_ms=decomposed_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   gemm_launches=gemm_launches(ff_block_gemms(label, *args, gen)),
+                   card=card)
         emit(**rec)
         headline = headline or rec
     return dict(headline, max_abs_err=max_err)
@@ -259,7 +270,7 @@ def flash_bwd_phase(card: str, gen) -> dict:
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
     )
-    from mvldm_tpu_torch.tools.flash_bwd_compare import TRAIN_SHAPES, train_inputs
+    from mvldm_tpu_torch.tools.kernel_compare import TRAIN_SHAPES, train_inputs
 
     n_sms = sm_count()
     out_recs = {}

@@ -1,16 +1,31 @@
 // Helpers of the attention kernels that keep the FlashAttention-2 register
-// layout on mma.sync m16n8k16 (flash_attn_fwd.cu, micro_attn.cu): tile
-// loads with zero fill, bf16 packing, and the reductions over the four
-// lanes (t = lane % 4) that hold one row of an m16n8 accumulator fragment.
+// layout on mma.sync m16n8k16 (micro_attn.cu's TF32 and fullk bodies), and
+// the row reductions the wgmma kernels share with them: tile loads with zero
+// fill, bf16 packing, the m16n8k16 product, and the reductions over the four
+// lanes (t = lane % 4) that hold one row of an m16n8 (or wgmma) accumulator.
 #pragma once
 
-#include "gemm_tile.cuh"  // bf16, ld32, mma_16816
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace attn_tile {
 
-using gemm_tile::bf16;
-using gemm_tile::ld32;
-using gemm_tile::mma_16816;
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

@@ -46,12 +46,11 @@
 // not stored by dK/dV, queries past Lq get lse = +inf (p = 0) and dO = 0,
 // delta = 0 (ds = 0) in dK/dV; rows past the end arrive zero-filled and
 // nothing is padded in device memory.
-#include "attn_tile.cuh"    // pack_bf16, quad_sum
-#include "hopper_tile.cuh"  // cp.async ring, wgmma
+#include "attn_tile.cuh"    // quad_sum
+#include "hopper_tile.cuh"  // cp.async ring, wgmma, exp2_ftz, pack_a
 
 namespace {
 
-using attn_tile::pack_bf16;
 using attn_tile::quad_sum;
 using namespace hopper_tile;
 
@@ -61,25 +60,6 @@ constexpr int kStages = 3;     // ring depth
 constexpr float kLog2e = 1.4426950408889634f;
 
 __host__ __device__ constexpr int pad16(int d) { return (d + 15) / 16 * 16; }
-
-// 2^x on the special-function unit, denormal results flushed to zero (p
-// below 2^-126 adds nothing to a bf16 product).
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Packs k step kk (16 columns) of a 64-row accumulator into the A
-// fragment of the next product: the accumulator's n8 blocks 2kk and
-// 2kk + 1 hold exactly the m16n8k16 A layout of those columns.
-__device__ __forceinline__ void pack_a(uint32_t* a, const float* acc, int kk) {
-  const float* c = acc + 8 * kk;
-  a[0] = pack_bf16(c[0], c[1]);
-  a[1] = pack_bf16(c[2], c[3]);
-  a[2] = pack_bf16(c[4], c[5]);
-  a[3] = pack_bf16(c[6], c[7]);
-}
 
 // ------------------------------------------------------------------ dQ
 

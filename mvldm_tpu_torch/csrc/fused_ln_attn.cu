@@ -6,9 +6,11 @@
 // matrices in 16 MB of VMEM and runs one token row-block per program; a
 // Hopper block has at most 227 KB of shared memory, so the function is
 // split into three launches on the same stream:
-//   (a) mvldm_ln_qkv: LayerNorm prologue (f32 statistics, eps 1e-6) on the
-//       A tiles of one GEMM against W_q / W_k / W_v (gridDim.z = 3), with
-//       the softmax scale folded into q, written bf16 as (N, H, L, D);
+//   (a) mvldm_ln_qkv: one GEMM against W_q / W_k / W_v (gridDim.z = 3)
+//       whose block normalises its 128 rows of x once (f32 statistics, eps
+//       1e-6) and keeps LN(x) resident in shared memory while the weight
+//       tiles stream, with the softmax scale folded into q, written bf16 as
+//       (N, H, L, D); C <= 640, the JAX package's gate for this kernel;
 //   (b) the attention core: mvldm_flash_attn_fwd from flash_attn_fwd.cu,
 //       called by the Python wrapper with scale 1 and no bias;
 //   (c) mvldm_attn_out_proj: the head-merged output times W_o with a
@@ -29,7 +31,8 @@ extern "C" int mvldm_ln_qkv(const void* x, const void* ln_g, const void* ln_b,
                             void* q, void* k, void* v, int M, int C, int HD,
                             int heads, int seq, int head_dim, float eps,
                             float qscale, void* stream) {
-  if (C % 8 != 0 || head_dim % 8 != 0 || heads * head_dim != HD || M % seq != 0)
+  if (C % 8 != 0 || C > gemm_tile::kMaxLnK || head_dim % 8 != 0 || heads * head_dim != HD ||
+      M % seq != 0)
     return (int)cudaErrorInvalidValue;
   Args a = {};
   a.a = static_cast<const bf16*>(x);

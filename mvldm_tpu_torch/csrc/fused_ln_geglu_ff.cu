@@ -6,12 +6,14 @@
 // stay resident in VMEM while token tiles stream through; on Hopper W1
 // alone is 6.5 MB at C = 640, far beyond a block's 227 KB of shared
 // memory, so the function runs as two launches:
-//   (1) mvldm_ff_geglu: GEMM against W1 with the LayerNorm in its A-tile
-//       prologue (f32 statistics, eps 1e-6, LN(x) rounded to bf16 before
-//       the product as in the JAX kernel) and a GEGLU epilogue with CUDA's
-//       erff (the TPU kernel's Abramowitz-Stegun erf existed only because
-//       Mosaic lacks erf); each block accumulates the h and gate columns of
-//       the same output tile, so the (tokens, 8C) product never reaches
+//   (1) mvldm_ff_geglu: GEMM against W1 whose block normalises its 128
+//       rows of x once (f32 statistics, eps 1e-6, LN(x) rounded to bf16
+//       before the product as in the JAX kernel; C <= 640, the JAX
+//       package's gate) and keeps them resident while W1 streams, with a
+//       GEGLU epilogue with CUDA's erff (the TPU kernel's Abramowitz-Stegun
+//       erf existed only because Mosaic lacks erf); each B tile stacks 64 h
+//       rows and their 64 gate rows, so one product yields both halves of
+//       the same output tile and the (tokens, 8C) product never reaches
 //       device memory; only act = h * gelu(g), (tokens, 4C) in bf16, does.
 //   (2) mvldm_ff_out: GEMM against W2 with a "+ b2 + x" epilogue.
 // What bounds it on this card: at 20 frames x 1024 tokens x C = 320 the
@@ -27,7 +29,7 @@ extern "C" int mvldm_ff_geglu(const void* x, const void* ln_g,
                               const void* ln_b, const void* w1,
                               const void* b1, void* act, int M, int C, int F,
                               float eps, void* stream) {
-  if (C % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (C % 8 != 0 || C > gemm_tile::kMaxLnK) return (int)cudaErrorInvalidValue;
   Args a = {};
   a.a = static_cast<const bf16*>(x);
   a.ln_g = static_cast<const float*>(ln_g);

@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the attention kernels: the
-// asynchronous copy ring (cp.async with zero fill and commit / wait groups),
-// warpgroup matrix multiplies (wgmma) with their shared-memory descriptors
-// and fence / commit / wait wrappers, and the tile layout both read.
+// Hopper (sm_90a) building blocks shared by the attention kernels and the
+// GEMM tile: the asynchronous copy ring (cp.async with zero fill and
+// commit / wait groups), warpgroup matrix multiplies (wgmma) with their
+// shared-memory descriptors and fence / commit / wait wrappers, the tile
+// layout both read, exp2 on the special-function unit and the repacking of
+// an f32 accumulator into a bf16 A fragment.
 //
 // Tile layout ("core-matrix blocked", wgmma's no-swizzle canonical form): a
 // tile of R rows x KP bf16 columns (R % 8 == 0, KP % 16 == 0) is stored as
@@ -93,6 +95,32 @@ __device__ __forceinline__ void zero_pad_cols(bf16* dst, int D) {
     const int rr = idx % 8, cg = dc + (idx / 8) % pad, rg = idx / (8 * pad);
     *reinterpret_cast<uint4*>(dst + (rg * NC + cg) * 64 + rr * 8) = make_uint4(0u, 0u, 0u, 0u);
   }
+}
+
+// ------------------------------------------------------------ elementwise
+
+// 2^x on the special-function unit, denormal results flushed to zero (p
+// below 2^-126 adds nothing to a bf16 product).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack2_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Packs k step kk (16 columns) of a 64-row accumulator into the A
+// fragment of the next product: the accumulator's n8 blocks 2kk and
+// 2kk + 1 hold exactly the m16n8k16 A layout of those columns.
+__device__ __forceinline__ void pack_a(uint32_t* a, const float* acc, int kk) {
+  const float* c = acc + 8 * kk;
+  a[0] = pack2_bf16(c[0], c[1]);
+  a[1] = pack2_bf16(c[2], c[3]);
+  a[2] = pack2_bf16(c[4], c[5]);
+  a[3] = pack2_bf16(c[6], c[7]);
 }
 
 // ------------------------------------------------------------------ wgmma
@@ -187,6 +215,20 @@ __device__ __forceinline__ void wgmma_rs_n40(float* d, const uint32_t* a, uint64
 }
 
 template <int TB>
+__device__ __forceinline__ void wgmma_rs_n48(float* d, const uint32_t* a, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, %30;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+}
+
+template <int TB>
 __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -242,21 +284,139 @@ __device__ __forceinline__ void wgmma_rs_n160(float* d, const uint32_t* a, uint6
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
 }
 
-template <int N>
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+}
+
+
+template <int N, int TB = 0>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int acc) {
-  static_assert(N == 32 || N == 64, "wgmma_ss: N");
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss: N");
+  static_assert(TB == 0 || N == 128, "wgmma_ss: MN-major B at N = 128 only");
   if constexpr (N == 32) wgmma_ss_n32(d, da, db, acc);
-  else wgmma_ss_n64(d, da, db, acc);
+  else if constexpr (N == 64) wgmma_ss_n64(d, da, db, acc);
+  else wgmma_ss_n128<TB>(d, da, db, acc);
 }
 
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db, int acc) {
-  static_assert(N == 32 || N == 40 || N == 64 || N == 80 || N == 160, "wgmma_rs: N");
+  static_assert(N == 32 || N == 40 || N == 48 || N == 64 || N == 80 || N == 128 || N == 160,
+                "wgmma_rs: N");
   if constexpr (N == 32) wgmma_rs_n32<TB>(d, a, db, acc);
   else if constexpr (N == 40) wgmma_rs_n40<TB>(d, a, db, acc);
+  else if constexpr (N == 48) wgmma_rs_n48<TB>(d, a, db, acc);
   else if constexpr (N == 64) wgmma_rs_n64<TB>(d, a, db, acc);
   else if constexpr (N == 80) wgmma_rs_n80<TB>(d, a, db, acc);
+  else if constexpr (N == 128) wgmma_rs_n128<TB>(d, a, db, acc);
   else wgmma_rs_n160<TB>(d, a, db, acc);
+}
+
+// ----------------------------------------------------- 128-byte swizzle
+//
+// wgmma's 128-byte swizzled layout, which the tensor cores read at full
+// rate (the no-swizzle layout above hands them 16 bytes of a row per
+// access): rows of 64 bf16 (128 bytes) in 1024-byte atoms of 8 rows, the
+// 16-byte chunk c of row r stored at chunk c ^ (r % 8) of its row; atoms
+// must start at 1024-byte aligned shared addresses (the swizzle XORs
+// address bits 4-6 with bits 7-9).
+//   * K-major (rows are M or N, the 64 columns a k slice): stride byte
+//     offset 1024 (next 8 rows); a 16-deep k step advances the start by
+//     32 bytes inside the atom.
+//   * MN-major (rows are k, the 64 columns an N slice): stride byte offset
+//     1024 (next 8 k rows), leading byte offset the distance to the atoms
+//     of the next 64 columns; a k step advances by two atoms.
+
+// Element offset of chunk c (0..7) of row r in a swizzled tile of 64 columns.
+__device__ __forceinline__ int sw128(int r, int c) {
+  return (r >> 3) * 512 + (r & 7) * 64 + ((c ^ r) & 7) * 8;
+}
+
+__device__ __forceinline__ uint64_t make_desc_sw128(const void* p, uint32_t lbo, uint32_t sbo) {
+  return make_desc(p, lbo, sbo) | (1ull << 62);
+}
+
+// Rows [0, rows) x columns [0, D) of a row-major (rows, D) bf16 source
+// into an R x KP swizzled tile (KP % 64 == 0: KP / 64 column slices of
+// R x 64, each R / 8 atoms), by THREADS threads. Rows >= rows are
+// zero-filled; chunks past D are not written (zero them once with
+// zero_pad_sw128).
+template <int R, int KP, int THREADS>
+__device__ __forceinline__ void load_tile_sw128(bf16* dst, const bf16* src, int rows, int D) {
+  constexpr int NC = KP / 8;
+  const int dc = D / 8;
+  for (int idx = threadIdx.x; idx < R * NC; idx += THREADS) {
+    const int r = idx / NC, c = idx % NC;
+    if (c >= dc) continue;
+    const bool valid = r < rows;
+    cp_async16(dst + (c >> 3) * (R * 64) + sw128(r, c & 7),
+               valid ? src + (size_t)r * D + c * 8 : src, valid);
+  }
+}
+
+// Zero the chunks [D / 8, KP / 8) of every row of an R x KP swizzled tile
+// (plain stores; fence_proxy_async and a barrier before wgmma reads them).
+template <int R, int KP, int THREADS>
+__device__ __forceinline__ void zero_pad_sw128(bf16* dst, int D) {
+  const int dc = D / 8, pad = KP / 8 - dc;
+  for (int idx = threadIdx.x; idx < R * pad; idx += THREADS) {
+    const int r = idx / pad, c = dc + idx - r * pad;
+    *reinterpret_cast<uint4*>(dst + (c >> 3) * (R * 64) + sw128(r, c & 7)) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// Descriptor of k step kk (16 columns) of rows [row0, row0 + 64 or N) of
+// an R-row swizzled tile read K-major, and of k step kk (16 rows) of an
+// R-row swizzled tile read MN-major (N across its column slices).
+template <int R>
+__device__ __forceinline__ uint64_t desc_k_sw128(const bf16* tile, int row0, int kk) {
+  return make_desc_sw128(tile + (kk >> 2) * (R * 64) + row0 * 64 + (kk & 3) * 16, 16, 1024);
+}
+template <int R>
+__device__ __forceinline__ uint64_t desc_mn_sw128(const bf16* tile, int kk) {
+  return make_desc_sw128(tile + kk * 2 * 512, R * 128, 1024);
 }
 
 // The m16n8k16 A fragment (k step kk) of rows [row0, row0 + 16) of a

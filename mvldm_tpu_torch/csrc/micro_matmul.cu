@@ -7,10 +7,12 @@
 // The probe's question on this card is the rate a hand-written tile reaches
 // against cuBLAS, so:
 //   * bf16 runs the GEMM core of the fused transformer blocks
-//     (gemm_tile.cuh: 128 x 64 tiles of eight warps on mma.sync m16n8k16,
-//     register-staged double buffer) with B staged as (K, N) rows and read
-//     by ldmatrix.trans, and a plain epilogue. At 4096 x 1024 x 1024 it is
-//     bound by tensor-core operations (8.6 GFLOP against 10.5 MB).
+//     (gemm_tile.cuh: two warpgroups on wgmma, 256 x 128 tiles through a
+//     four-stage cp.async ring where they fill the card, else 128 x 128
+//     through three) with B staged as (K, N) rows as given and read through
+//     the MN-major descriptor, and a plain epilogue.
+//     At 4096 x 1024 x 1024 it is bound by tensor-core operations (8.6 GFLOP
+//     against 10.5 MB).
 //   * f32 must not go through TF32 (arbitrary f32 inputs would lose ~1e-3),
 //     so it is a register-blocked FFMA kernel bound by the FP32 rate: a
 //     128 x 128 output tile per block of 256 threads, each thread an 8 x 8

@@ -156,9 +156,11 @@ def _optr(t: Optional[torch.Tensor]):
     return None if t is None else _build.ptr(t)
 
 
-def _launch_flash(q, k, v, bias, out, scale: float, lse=None) -> None:
-    """Launch the forward kernel on the current stream (no checks, no count)."""
-    lib = _build.load("flash_attn_fwd", _FWD_SIGNATURES)
+def _launch_flash(q, k, v, bias, out, scale: float, lse=None, lib=None) -> None:
+    """Launch the forward kernel on the current stream (no checks, no
+    count); ``lib`` is a build of ``csrc/flash_attn_fwd.cu``, this tree's
+    by default."""
+    lib = lib or _build.load("flash_attn_fwd", _FWD_SIGNATURES)
     b, h, lq, d = q.shape
     err = lib.mvldm_flash_attn_fwd(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _optr(bias),

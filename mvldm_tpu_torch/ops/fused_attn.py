@@ -22,7 +22,9 @@ unpadded (C, H*D) q/k/v and (H*D, C) output projections; the TPU's 128-lane
 ``MAX_FUSED_CHANNEL_BYTES`` is the JAX package's gate (C * itemsize <= 1280),
 kept so both packages take the same path per layer (see
 ``models/layers.self_attn_block``). It is a fact of the TPU's 16 MB VMEM;
-whether Hopper wants the same cut is for a later measurement.
+on Hopper the LN-prologue GEMM keeps a 128-row block of LN(x) in shared
+memory, so the kernels take C <= ``MAX_KERNEL_CHANNELS`` (the same 640) and
+a CUDA call above it raises.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from . import _build
 from .attention import _launch_flash, attention, attention_reference
 
 MAX_FUSED_CHANNEL_BYTES = 640 * 2
+MAX_KERNEL_CHANNELS = 640  # csrc/gemm_tile.cuh kMaxLnK: 128 rows of LN(x) resident
 
 _SIGNATURES = {
     "mvldm_ln_qkv": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
@@ -162,6 +165,37 @@ def fused_ln_self_attention(x, ln_scale, ln_bias, wq, wk, wv, wo, bo,
     return _fused_attn_cuda(*args, num_heads, head_dim, eps)
 
 
+def check_kernel_channels(c: int, what: str) -> None:
+    """The LN-prologue kernels take C % 8 == 0 and C <= MAX_KERNEL_CHANNELS."""
+    if c % 8 or c > MAX_KERNEL_CHANNELS:
+        raise ValueError(f"{what}: the kernels take C % 8 == 0 and C <= "
+                         f"{MAX_KERNEL_CHANNELS} (got C = {c})")
+
+
+def _launch_ln_qkv(lib, x, g, b, wq, wk, wv, q, k, v, eps: float) -> None:
+    """``lib``'s LN + QKV GEMM on the current stream (no checks, no count):
+    x (N, L, C) -> q, k, v (N, H, L, D), the softmax scale folded into q;
+    ``lib`` is a build of ``csrc/fused_ln_attn.cu``."""
+    n, heads, l, d = q.shape
+    c = x.shape[-1]
+    _build.check(lib.mvldm_ln_qkv(
+        _build.ptr(x), _build.ptr(g), _build.ptr(b), _build.ptr(wq),
+        _build.ptr(wk), _build.ptr(wv), _build.ptr(q), _build.ptr(k),
+        _build.ptr(v), n * l, c, heads * d, heads, l, d, float(eps),
+        1.0 / d ** 0.5, _build.stream_ptr(x.device)), "mvldm_ln_qkv")
+
+
+def _launch_out_proj(lib, o, wo, bo, x, y) -> None:
+    """``lib``'s head-merging output projection with the + b_o + x
+    epilogue on the current stream: o (N, H, L, D) -> y (N, L, C)."""
+    n, heads, l, d = o.shape
+    c = x.shape[-1]
+    _build.check(lib.mvldm_attn_out_proj(
+        _build.ptr(o), _build.ptr(wo), _build.ptr(bo), _build.ptr(x),
+        _build.ptr(y), n * l, c, heads * d, heads, l, d, _build.stream_ptr(x.device)),
+        "mvldm_attn_out_proj")
+
+
 def _fused_attn_cuda(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, num_heads: int,
                      head_dim: int, eps: float) -> torch.Tensor:
     """The three launches of ``csrc/fused_ln_attn.cu`` and the flash core."""
@@ -171,8 +205,9 @@ def _fused_attn_cuda(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, num_heads: int,
     hd = num_heads * head_dim
     if x.dtype != torch.bfloat16 or not x.is_contiguous():
         raise ValueError("fused_ln_self_attention: x must be contiguous bfloat16")
-    if c % 8 or head_dim % 8:
-        raise ValueError("fused_ln_self_attention: C and head_dim must be multiples of 8")
+    check_kernel_channels(c, "fused_ln_self_attention")
+    if head_dim % 8:
+        raise ValueError("fused_ln_self_attention: head_dim must be a multiple of 8")
     for name, w in (("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo)):
         if w.device != x.device:
             raise ValueError(f"fused_ln_self_attention: {name} not on {x.device}")
@@ -181,25 +216,16 @@ def _fused_attn_cuda(x, ln_scale, ln_bias, wq, wk, wv, wo, bo, num_heads: int,
     g = _vec(ln_scale, c, x.device, "ln_scale")
     b = _vec(ln_bias, c, x.device, "ln_bias")
     bo32 = _vec(bo, c, x.device, "bo")
-    m = x.numel() // c
-    n = m // l
+    n = x.numel() // (c * l)
     lib = _build.load("fused_ln_attn", _SIGNATURES)
-    stream = _build.stream_ptr(x.device)
     q = torch.empty((n, num_heads, l, head_dim), dtype=x.dtype, device=x.device)
     k = torch.empty_like(q)
     v = torch.empty_like(q)
-    _build.check(lib.mvldm_ln_qkv(
-        _build.ptr(x), _build.ptr(g), _build.ptr(b), _build.ptr(wq),
-        _build.ptr(wk), _build.ptr(wv), _build.ptr(q), _build.ptr(k),
-        _build.ptr(v), m, c, hd, num_heads, l, head_dim, float(eps),
-        1.0 / head_dim ** 0.5, stream), "mvldm_ln_qkv")
+    _launch_ln_qkv(lib, x, g, b, wq, wk, wv, q, k, v, eps)
     o = torch.empty_like(q)
     _launch_flash(q, k, v, None, o, 1.0)  # scale already folded into q
     y = torch.empty_like(x)
-    _build.check(lib.mvldm_attn_out_proj(
-        _build.ptr(o), _build.ptr(wo), _build.ptr(bo32), _build.ptr(x),
-        _build.ptr(y), m, c, hd, num_heads, l, head_dim, stream),
-        "mvldm_attn_out_proj")
+    _launch_out_proj(lib, o, wo, bo32, x, y)
     fused_ln_self_attention.launches += 1
     return y
 

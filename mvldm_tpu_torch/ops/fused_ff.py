@@ -26,7 +26,13 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .fused_attn import _layer_norm, _recompute_grads, _torch_layout, _vec
+from .fused_attn import (
+    _layer_norm,
+    _recompute_grads,
+    _torch_layout,
+    _vec,
+    check_kernel_channels,
+)
 
 _SIGNATURES = {
     "mvldm_ff_geglu": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
@@ -92,14 +98,32 @@ def fused_ln_geglu_ff(x, ln_scale, ln_bias, w1, b1, w2, b2,
     return _fused_ff_cuda(*args, eps)
 
 
+def _launch_geglu(lib, x, g, b, w1, b1, act, eps: float) -> None:
+    """``lib``'s LN + W1 GEMM with the GEGLU epilogue on the current stream
+    (no checks, no count): x (..., C) -> act (M, 4C); ``lib`` is a build of
+    ``csrc/fused_ln_geglu_ff.cu``."""
+    c = x.shape[-1]
+    _build.check(lib.mvldm_ff_geglu(
+        _build.ptr(x), _build.ptr(g), _build.ptr(b), _build.ptr(w1),
+        _build.ptr(b1), _build.ptr(act), act.shape[0], c, act.shape[1], float(eps),
+        _build.stream_ptr(x.device)), "mvldm_ff_geglu")
+
+
+def _launch_ff_out(lib, act, w2, b2, x, y) -> None:
+    """``lib``'s W2 GEMM with the + b2 + x epilogue on the current stream."""
+    _build.check(lib.mvldm_ff_out(
+        _build.ptr(act), _build.ptr(w2), _build.ptr(b2), _build.ptr(x),
+        _build.ptr(y), act.shape[0], x.shape[-1], act.shape[1],
+        _build.stream_ptr(x.device)), "mvldm_ff_out")
+
+
 def _fused_ff_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float) -> torch.Tensor:
     """The two launches of ``csrc/fused_ln_geglu_ff.cu``."""
     c = x.shape[-1]
     f = 4 * c
     if x.dtype != torch.bfloat16 or not x.is_contiguous():
         raise ValueError("fused_ln_geglu_ff: x must be contiguous bfloat16")
-    if c % 8:
-        raise ValueError("fused_ln_geglu_ff: C must be a multiple of 8")
+    check_kernel_channels(c, "fused_ln_geglu_ff")
     for name, w in (("w1", w1), ("w2", w2)):
         if w.device != x.device:
             raise ValueError(f"fused_ln_geglu_ff: {name} not on {x.device}")
@@ -109,18 +133,11 @@ def _fused_ff_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float) -> torch.Te
     b = _vec(ln_bias, c, x.device, "ln_bias")
     b1_32 = _vec(b1, 2 * f, x.device, "b1")
     b2_32 = _vec(b2, c, x.device, "b2")
-    m = x.numel() // c
     lib = _build.load("fused_ln_geglu_ff", _SIGNATURES)
-    stream = _build.stream_ptr(x.device)
-    act = torch.empty((m, f), dtype=x.dtype, device=x.device)
-    _build.check(lib.mvldm_ff_geglu(
-        _build.ptr(x), _build.ptr(g), _build.ptr(b), _build.ptr(w1),
-        _build.ptr(b1_32), _build.ptr(act), m, c, f, float(eps), stream),
-        "mvldm_ff_geglu")
+    act = torch.empty((x.numel() // c, f), dtype=x.dtype, device=x.device)
+    _launch_geglu(lib, x, g, b, w1, b1_32, act, eps)
     y = torch.empty_like(x)
-    _build.check(lib.mvldm_ff_out(
-        _build.ptr(act), _build.ptr(w2), _build.ptr(b2_32), _build.ptr(x),
-        _build.ptr(y), m, c, f, stream), "mvldm_ff_out")
+    _launch_ff_out(lib, act, w2, b2_32, x, y)
     fused_ln_geglu_ff.launches += 1
     return y
 

@@ -1,6 +1,7 @@
-"""Attention microbenchmark on one NVIDIA GPU: what a hand-written
-``mma.sync`` matmul tile, an exact single-pass softmax, a flash loop at
-native and padded head dims, and an elementwise exp pass cost on the card.
+"""Attention microbenchmark on one NVIDIA GPU: what a hand-written bf16
+matmul tile (the fused blocks' ``wgmma`` GEMM tile), an exact single-pass
+softmax, a flash loop at native and padded head dims, and an elementwise
+exp pass cost on the card.
 
     python -m mvldm_tpu_torch.tools.bench_attn_micro [matmul exp flash fullk floor]
 
@@ -155,9 +156,10 @@ def _check_cuda(what: str, dtypes, *tensors) -> None:
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Hand-written (m, k) @ (k, n), f32 accumulation, output in the inputs'
-    dtype (``csrc/micro_matmul.cu``): bf16 on ``mma.sync`` through the fused
-    blocks' GEMM tile (``csrc/gemm_tile.cuh``, B read as (K, N)), f32 on
-    register-blocked FFMA. b is row-major as given; n and k multiples of 8."""
+    dtype (``csrc/micro_matmul.cu``): bf16 on ``wgmma`` through the fused
+    blocks' GEMM tile (``csrc/gemm_tile.cuh``, B read MN-major as (K, N)),
+    f32 on register-blocked FFMA. b is row-major as given; n and k multiples
+    of 8."""
     what = "matmul"
     _check_cuda(what, (torch.bfloat16, torch.float32), a, b)
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0] or a.dtype != b.dtype:
@@ -168,12 +170,19 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{what}: needs m > 0 and n, k positive multiples of 8, got "
                          f"{m}, {n}, {k}")
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    lib = _build.load("micro_matmul", _MATMUL_SIG)
-    err = lib.mvldm_micro_matmul(_build.ptr(a), _build.ptr(b), _build.ptr(out), m, n, k,
-                                 int(a.dtype == torch.float32), _build.stream_ptr(a.device))
-    _build.check(err, f"mvldm_micro_matmul ({a.dtype})")
+    _launch_matmul(_build.load("micro_matmul", _MATMUL_SIG), a, b, out)
     matmul.launches += 1
     return out
+
+
+def _launch_matmul(lib, a, b, out) -> None:
+    """``lib``'s matmul entry on the current stream (no checks, no count);
+    ``lib`` is a build of ``csrc/micro_matmul.cu``."""
+    m, k = a.shape
+    err = lib.mvldm_micro_matmul(_build.ptr(a), _build.ptr(b), _build.ptr(out), m,
+                                 b.shape[1], k, int(a.dtype == torch.float32),
+                                 _build.stream_ptr(a.device))
+    _build.check(err, f"mvldm_micro_matmul ({a.dtype})")
 
 
 matmul.launches = 0
@@ -226,11 +235,11 @@ def flash(q, k, v, scale: float, bq: int = 1024, bk: int = 1024,
     softmax on bf16 (B, H, L, D) q and (B, H, Lk, D) k, v, D rounding up to
     48, 80, 128 or 160. ``dot_dtype`` bf16 is the production forward
     (:func:`~mvldm_tpu_torch.ops.attention.flash_attention` with no bias,
-    ``csrc/flash_attn_fwd.cu``), both products on bf16 ``mma.sync``; f32
+    ``csrc/flash_attn_fwd.cu``), both products on bf16 ``wgmma``; f32
     runs them on TF32 ``mma.sync`` (``csrc/micro_attn.cu``; the bf16 q, k, v
     are exact in TF32, p is rounded to TF32). ``bq`` and ``bk`` (the TPU's
-    query and key blocks) are ignored: a block takes 64 query rows and walks
-    64-key tiles, masking the ragged last one."""
+    query and key blocks) are ignored: each 64 query rows walk 64-key
+    tiles, masking the ragged last one."""
     _check_attn("flash", q, k, v, FLASH_DIMS)
     if dot_dtype == torch.bfloat16:
         out = flash_attention(q, k, v, None, scale)

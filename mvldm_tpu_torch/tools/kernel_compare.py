@@ -1,0 +1,469 @@
+"""Time this tree's build of one kernel source against another checkout's,
+in turns, on one NVIDIA GPU.
+
+    python -m mvldm_tpu_torch.tools.kernel_compare --other DIR
+        [--kernel bwd|fwd|gemm] [--rounds N] [--only TEXT]
+
+DIR is another checkout of this repository, for example the parent commit
+unpacked with ``git archive`` into an ignored directory such as
+``build/parent``. The sources of the chosen kernel are built from DIR's
+``mvldm_tpu_torch/csrc/`` with this tree's nvcc flags into
+``build/compare/``; the two builds share the C interface, so one launch
+helper drives both. At every shape the two run on the same inputs, each is
+checked against the plain version (own error past half a bf16 step, over
+the rms of what it computes, as ``chip_smoke.py`` does), then both are timed
+in turns (this, other, other, this, ``--rounds`` times, by CUDA-graph
+replay). One JSON line per shape and launch, then the card as
+``nvidia-smi`` names it.
+
+* ``bwd`` (default): the flash backward (``flash_attn_bwd.cu``, dQ and
+  dK/dV) at every attention shape of a training step
+  (:data:`TRAIN_SHAPES`), SDPA's backward beside it;
+* ``fwd``: the flash forward (``flash_attn_fwd.cu``) at every shape of
+  ``chip_smoke.py``'s attention phase (:data:`SAMPLING_SHAPES`) and the
+  forward of every training shape (with the lse), SDPA's forward and the
+  exp floor beside it;
+* ``gemm``: each of the five GEMM entries of ``fused_ln_attn.cu``,
+  ``fused_ln_geglu_ff.cu`` and ``micro_matmul.cu`` (the GEMM tile of
+  ``gemm_tile.cuh``) at the shapes of the fused blocks
+  (:data:`ATTN_BLOCK_SHAPES`, :data:`FF_BLOCK_SHAPES`) and of the matmul
+  probe (:data:`MATMUL_SHAPES`), the cuBLAS product beside it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from ..ops import _build
+from ..ops import attention as attn
+from ..ops import fused_attn, fused_ff
+from . import bench_attn_micro as micro
+from . import measure
+
+# (label, B, H, L, D, bias): every attention of a training step at batch 2
+# (2 context + 3 target views): the joint attention over B = 2 examples, the
+# per-frame ones over 2 x 5 frames.
+TRAIN_SHAPES = [
+    ("joint 32x32 (C=320)", 2, 8, 5 * 1024, 40, True),
+    ("joint 16x16 (C=640)", 2, 8, 5 * 256, 80, True),
+    ("joint 8x8 (C=1280)", 2, 8, 5 * 64, 160, True),
+    ("joint 4x4 (C=1280)", 2, 8, 5 * 16, 160, True),
+    ("SD attn1 32x32 (C=320)", 10, 5, 1024, 64, False),
+    ("SD attn1 16x16 (C=640)", 10, 10, 256, 64, False),
+    ("SD attn1 8x8 (C=1280)", 10, 20, 64, 64, False),
+    ("SD attn1 4x4 (C=1280)", 10, 20, 16, 64, False),
+    ("per-frame attn2 32x32 (C=320)", 10, 8, 1024, 40, False),
+    ("per-frame attn2 16x16 (C=640)", 10, 8, 256, 80, False),
+    ("per-frame attn2 8x8 (C=1280)", 10, 8, 64, 160, False),
+    ("per-frame attn2 4x4 (C=1280)", 10, 8, 16, 160, False),
+]
+
+# (label, B, H, L, D, bias): the flash forward's shapes in anchored
+# sampling; B counts batch rows (2 = batched CFG, 4 = two fill groups).
+SAMPLING_SHAPES = [
+    ("joint 32x32 anchor (C=320)", 2, 8, 5 * 1024, 40, True),
+    ("joint 16x16 anchor (C=640)", 2, 8, 5 * 256, 80, True),
+    ("joint 8x8 anchor (C=1280)", 2, 8, 5 * 64, 160, True),
+    ("joint 4x4 anchor (C=1280)", 2, 8, 5 * 16, 160, True),
+    ("joint 32x32 fill (C=320)", 4, 8, 5 * 1024, 40, False),
+    ("SD attn1 8x8 (C=1280)", 20, 20, 64, 64, False),
+    ("SD attn1 4x4 (C=1280)", 20, 20, 16, 64, False),
+    ("per-frame attn2 8x8 (C=1280)", 20, 8, 64, 160, False),
+    ("VAE mid-block 32x32", 12, 1, 1024, 512, False),
+]
+
+# (label, N frames, L, C, heads, head_dim) of the fused LN + self-attention
+# block and (label, N, L, C) of the fused LN + GEGLU FF, N = 2 CFG rows x 5
+# views; (M, K) of the matmul probe (its B is K x K).
+ATTN_BLOCK_SHAPES = [
+    ("SD attn1 32x32 (C=320)", 10, 1024, 320, 5, 64),
+    ("cross-view attn2 32x32 (C=320)", 10, 1024, 320, 8, 40),
+    ("SD attn1 16x16 (C=640)", 10, 256, 640, 10, 64),
+    ("cross-view attn2 16x16 (C=640)", 10, 256, 640, 8, 80),
+]
+FF_BLOCK_SHAPES = [("FF 32x32 (C=320)", 10, 1024, 320), ("FF 16x16 (C=640)", 10, 256, 640)]
+MATMUL_SHAPES = [(4096, 1024), (8192, 512)]
+
+SOURCES = {"bwd": ("flash_attn_bwd",), "fwd": ("flash_attn_fwd",),
+           "gemm": ("fused_ln_attn", "fused_ln_geglu_ff", "micro_matmul")}
+SIGNATURES = {"flash_attn_bwd": attn._BWD_SIGNATURES, "flash_attn_fwd": attn._FWD_SIGNATURES,
+              "fused_ln_attn": fused_attn._SIGNATURES, "fused_ln_geglu_ff": fused_ff._SIGNATURES,
+              "micro_matmul": micro._MATMUL_SIG}
+
+
+def attn_inputs(gen, b, h, l, d, with_bias):
+    """Seeded bf16 q, k, v on the card; with a bias, the unconditional rows
+    (all but the first) mask their context view (the first fifth of the
+    keys) out, as batched CFG does."""
+    q, k, v = (torch.randn((b, h, l, d), generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    bias = None
+    if with_bias:
+        bias = torch.zeros((b, l), device="cuda")
+        bias[1:, : l // 5] = attn.NEG_INF
+    return q, k, v, bias
+
+
+def train_inputs(gen, b, h, l, d, with_bias):
+    """:func:`attn_inputs` and a seeded bf16 output gradient g."""
+    q, k, v, bias = attn_inputs(gen, b, h, l, d, with_bias)
+    g = torch.randn((b, h, l, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+    return q, k, v, g, bias
+
+
+def build_other(checkout: Path, names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
+    """``csrc/<name>.cu`` of another checkout for each of ``names``, built
+    with this tree's flags (its own headers beside it) into
+    ``build/compare/``, one nvcc per source, all started together."""
+    out_dir = _build.BUILD_DIR.parent / "compare"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        src = checkout / "mvldm_tpu_torch" / "csrc" / f"{name}.cu"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src.parent), "-o",
+               str(out_dir / f"lib{name}_other.so"), str(src)]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc {name}.cu of {checkout} failed:\n{log}")
+    return {n: _build.open_lib(out_dir / f"lib{n}_other.so", SIGNATURES[n]) for n in names}
+
+
+def load_libs(kernel: str, other: Path) -> Dict[str, Dict[str, ctypes.CDLL]]:
+    """{"this": {source: lib}, "other": {source: lib}} for ``kernel``."""
+    names = SOURCES[kernel]
+    _build.build(names)
+    return {"this": {n: _build.load(n, SIGNATURES[n]) for n in names},
+            "other": build_other(other, names)}
+
+
+def in_turns(fns: Dict[str, Callable[[], object]], rounds: int, iters: Optional[int]):
+    """Device ms of each of ``fns`` ("this", "other"), timed this, other,
+    other, this, ``rounds`` times: {name: [ms, ...]}."""
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name in ("this", "other", "other", "this"):
+            times[name].append(measure.time_ms(fns[name], iters))
+    return times
+
+
+def _mean(xs: Sequence[float]) -> float:
+    return sum(xs) / len(xs)
+
+
+# ------------------------------------------------------------------ bwd
+
+def run_bwd(lib, q, k, v, bias, out, lse, g):
+    """Both kernels of ``lib``: (dq, dk, dv, dbias summed over heads)."""
+    scale = attn._scale(q, None)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    dbias = None if bias is None else torch.empty(k.shape[:3], dtype=torch.float32,
+                                                  device=q.device)
+    attn._launch_bwd_dq(lib, q, k, v, bias, out, lse, g, delta, dq, scale)
+    attn._launch_bwd_dkv(lib, q, k, v, bias, lse, delta, g, dk, dv, dbias, scale)
+    return dq, dk, dv, None if dbias is None else dbias.sum(1), delta
+
+
+def time_kernels(lib, q, k, v, bias, out, lse, g, iters):
+    """(dQ ms, dK/dV ms) of ``lib`` by graph replay."""
+    scale = attn._scale(q, None)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    dbias = None if bias is None else torch.empty(k.shape[:3], dtype=torch.float32,
+                                                  device=q.device)
+    dq_ms = measure.time_ms(
+        lambda: attn._launch_bwd_dq(lib, q, k, v, bias, out, lse, g, delta, dq, scale), iters)
+    dkv_ms = measure.time_ms(
+        lambda: attn._launch_bwd_dkv(lib, q, k, v, bias, lse, delta, g, dk, dv, dbias, scale),
+        iters)
+    return dq_ms, dkv_ms
+
+
+def compare_bwd(libs, args, card: str) -> None:
+    libs = {name: ls["flash_attn_bwd"] for name, ls in libs.items()}
+    n_sms = measure.sm_count()
+    gen = torch.Generator("cuda").manual_seed(0)
+    for label, b, h, l, d, with_bias in TRAIN_SHAPES:
+        if args.only and not any(text in label for text in args.only):
+            continue
+        q, k, v, g, bias = train_inputs(gen, b, h, l, d, with_bias)
+        out, lse = attn.flash_attention(q, k, v, bias, return_lse=True)
+        ref = attn.attention_bwd_reference(q.float(), k.float(), v.float(), bias, g.float())
+        errs = {}
+        for name, lib in libs.items():
+            got = run_bwd(lib, q, k, v, bias, out, lse, g)
+            errs[name] = max(measure.error_record(x, r)["err_over_rms"]
+                             for x, r in zip(got[:4], ref) if r is not None)
+        del ref
+        iters = 10 if l >= 1024 else 50
+        times = {name: [] for name in libs}
+        for _ in range(args.rounds):
+            for name in ("this", "other", "other", "this"):
+                times[name].append(time_kernels(libs[name], q, k, v, bias, out, lse, g, iters))
+        mhz = measure.sm_clock_mhz()
+        rec = dict(kernel="bwd", shape=label, B=b, H=h, L=l, D=d, bias=with_bias, sm_mhz=mhz,
+                   exp_floor_ms=measure.exp_floor_ms(b * h * l * l, mhz, n_sms),
+                   sdpa_bwd_ms=measure.sdpa_bwd_ms(q, k, v, bias, g, iters), card=card)
+        for name, ts in times.items():
+            dq_ms = _mean([t[0] for t in ts])
+            dkv_ms = _mean([t[1] for t in ts])
+            rec[name] = dict(dq_ms=dq_ms, dkv_ms=dkv_ms, bwd_ms=dq_ms + dkv_ms,
+                             err_over_rms=errs[name], turns=[list(t) for t in ts])
+        rec["this_over_other"] = rec["this"]["bwd_ms"] / rec["other"]["bwd_ms"]
+        print(json.dumps(rec), flush=True)
+        del q, k, v, g, bias, out, lse
+        torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ fwd
+
+def fwd_shapes():
+    """(label, B, H, L, D, bias, with_lse): the sampling shapes, then the
+    forward of every training shape (which writes the lse)."""
+    return ([(label, *shape, False) for label, *shape in SAMPLING_SHAPES]
+            + [(f"train {label}", *shape, True) for label, *shape in TRAIN_SHAPES])
+
+
+def compare_fwd(libs, args, card: str) -> None:
+    libs = {name: ls["flash_attn_fwd"] for name, ls in libs.items()}
+    n_sms = measure.sm_count()
+    gen = torch.Generator("cuda").manual_seed(0)
+    for label, b, h, l, d, with_bias, with_lse in fwd_shapes():
+        if args.only and not any(text in label for text in args.only):
+            continue
+        q, k, v, bias = attn_inputs(gen, b, h, l, d, with_bias)
+        scale = attn._scale(q, None)
+        out = torch.empty_like(q)
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device="cuda") if with_lse else None
+        ref_out, ref_lse = attn.attention_reference_lse(q.float(), k.float(), v.float(), bias)
+        errs = {}
+        for name, lib in libs.items():
+            attn._launch_flash(q, k, v, bias, out, scale, lse, lib=lib)
+            errs[name] = measure.error_record(out, ref_out)["err_over_rms"]
+            if with_lse:
+                errs[name] = max(errs[name], measure.error_record(lse, ref_lse)["err_over_rms"])
+        del ref_out, ref_lse
+        iters = 20 if l >= 1024 else 100
+        times = in_turns({name: (lambda lib=lib: attn._launch_flash(q, k, v, bias, out, scale,
+                                                                    lse, lib=lib))
+                          for name, lib in libs.items()}, args.rounds, iters)
+        mask = None if bias is None else bias[:, None, None, :].to(q.dtype)
+        sdpa_ms = measure.time_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), iters)
+        mhz = measure.sm_clock_mhz()
+        rec = dict(kernel="fwd", shape=label, B=b, H=h, L=l, D=d, bias=with_bias, lse=with_lse,
+                   sm_mhz=mhz, exp_floor_ms=measure.exp_floor_ms(b * h * l * l, mhz, n_sms),
+                   bound_ms=measure.bound(4.0 * b * h * l * l * d,
+                                          measure.nbytes(q, k, v, bias, out, lse))[0],
+                   sdpa_ms=sdpa_ms, card=card)
+        for name, ts in times.items():
+            rec[name] = dict(ms=_mean(ts), err_over_rms=errs[name], turns=ts)
+        rec["this_over_other"] = rec["this"]["ms"] / rec["other"]["ms"]
+        rec["this_over_sdpa"] = rec["this"]["ms"] / sdpa_ms
+        print(json.dumps(rec), flush=True)
+        del q, k, v, bias, out, lse
+        torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------- gemm
+
+class GemmCall(NamedTuple):
+    """One launch of a GEMM entry at one shape: ``run(lib)`` launches the
+    entry of ``lib`` (a build of ``csrc/<source>.cu``) into ``outs``,
+    ``refs`` are the plain version's f32 outputs on the same inputs (with
+    ``residual`` taken off before the rms, for the residual epilogues),
+    ``library`` is the cuBLAS product of the same operands, and ``flops``
+    and ``moved`` give the bound."""
+    entry: str
+    source: str
+    shape: str
+    run: Callable[[ctypes.CDLL], None]
+    outs: List[torch.Tensor]
+    refs: List[torch.Tensor]
+    residual: Optional[torch.Tensor]
+    library: Callable[[], object]
+    flops: float
+    moved: int
+
+
+def _bf16(gen, *shape, scale=1.0):
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+
+def _vec(gen, n, scale=0.1, shift=0.0):
+    return torch.randn(n, generator=gen, device="cuda") * scale + shift
+
+
+def block_weights(gen, out_f: int, in_f: int):
+    """A torch-Linear-layout bf16 weight (out, in) with std in_f ** -0.5;
+    the fused blocks take its (in, out) view."""
+    return (torch.randn((out_f, in_f), generator=gen, device="cuda") * in_f ** -0.5
+            ).to(torch.bfloat16)
+
+
+def _ln_bf16(x, g, b, eps=1e-6):
+    return fused_attn._layer_norm(x, g, b, eps).to(torch.bfloat16).float()
+
+
+def attn_block_gemms(label, x, g, b, wq, wk, wv, wo, bo, heads, d, gen) -> List[GemmCall]:
+    """The two GEMM launches of the fused LN + self-attention block on x
+    (N, L, C) with JAX-layout weights (torch-Linear transposes): the LN +
+    QKV GEMM, and the output projection on a seeded o (N, H, L, D)."""
+    n, l, c = x.shape
+    hd = heads * d
+    q, k, v = (torch.empty((n, heads, l, d), dtype=x.dtype, device="cuda") for _ in range(3))
+    scale = d ** -0.5
+    xn = _ln_bf16(x, g, b)
+
+    def heads_of(y):
+        return y.reshape(n, l, heads, d).transpose(1, 2)
+
+    refs = [heads_of(xn @ wq.float()) * scale, heads_of(xn @ wk.float()),
+            heads_of(xn @ wv.float())]
+    xn16, wqkv = xn.to(x.dtype).reshape(-1, c), torch.cat([wq, wk, wv], dim=1)
+    qkv = [GemmCall("mvldm_ln_qkv", "fused_ln_attn", label,
+                    lambda lib: fused_attn._launch_ln_qkv(lib, x, g, b, wq, wk, wv, q, k, v, 1e-6),
+                    [q, k, v], refs, None,
+                    lambda: xn16 @ wqkv,
+                    2.0 * n * l * c * 3 * hd, measure.nbytes(x, g, b, wq, wk, wv, q, k, v))]
+    o = _bf16(gen, n, heads, l, d)
+    y = torch.empty_like(x)
+    om = o.transpose(1, 2).reshape(n * l, hd)
+    ref = (om.float() @ wo.float() + bo).reshape(x.shape) + x.float()
+    bo16 = bo.to(x.dtype)
+    proj = GemmCall("mvldm_attn_out_proj", "fused_ln_attn", label,
+                    lambda lib: fused_attn._launch_out_proj(lib, o, wo, bo, x, y),
+                    [y], [ref], x, lambda: F.linear(om, wo.t(), bo16),
+                    2.0 * n * l * hd * c, measure.nbytes(o, wo, bo, x, y))
+    return qkv + [proj]
+
+
+def ff_block_gemms(label, x, g, b, w1, b1, w2, b2, gen) -> List[GemmCall]:
+    """The two GEMM launches of the fused LN + GEGLU FF block on x (N, L, C)
+    with JAX-layout weights: LN + W1 with the GEGLU epilogue, and W2 with
+    the residual epilogue on a seeded activation."""
+    n, l, c = x.shape
+    f = 4 * c
+    m = n * l
+    act = torch.empty((m, f), dtype=x.dtype, device="cuda")
+    hg = _ln_bf16(x, g, b).reshape(m, c) @ w1.float() + b1
+    ref_act = hg[:, :f] * F.gelu(hg[:, f:])
+    xn16, b1_16 = _ln_bf16(x, g, b).to(x.dtype).reshape(m, c), b1.to(x.dtype)
+    geglu = GemmCall("mvldm_ff_geglu", "fused_ln_geglu_ff", label,
+                     lambda lib: fused_ff._launch_geglu(lib, x, g, b, w1, b1, act, 1e-6),
+                     [act], [ref_act], None, lambda: F.linear(xn16, w1.t(), b1_16),
+                     2.0 * m * c * 2 * f, measure.nbytes(x, g, b, w1, b1, act))
+    a2 = _bf16(gen, m, f, scale=0.5)
+    y = torch.empty_like(x)
+    ref = (a2.float() @ w2.float() + b2).reshape(x.shape) + x.float()
+    out = GemmCall("mvldm_ff_out", "fused_ln_geglu_ff", label,
+                   lambda lib: fused_ff._launch_ff_out(lib, a2, w2, b2, x, y),
+                   [y], [ref], x, lambda b2_16=b2.to(x.dtype): F.linear(a2, w2.t(), b2_16),
+                   2.0 * m * f * c, measure.nbytes(a2, w2, b2, x, y))
+    return [geglu, out]
+
+
+def matmul_gemm(m: int, k: int, gen) -> GemmCall:
+    a, bm = _bf16(gen, m, k), _bf16(gen, k, k)
+    out = torch.empty((m, k), dtype=torch.bfloat16, device="cuda")
+    return GemmCall("mvldm_micro_matmul", "micro_matmul", f"matmul {m}x{k}x{k} bf16",
+                    lambda lib: micro._launch_matmul(lib, a, bm, out), [out],
+                    [a.float() @ bm.float()], None, lambda: torch.matmul(a, bm),
+                    2.0 * m * k * k, measure.nbytes(a, bm, out))
+
+
+def attn_block_inputs(gen, n, l, c, heads, d):
+    """x, LN scale and bias, wq, wk, wv, wo (JAX layouts), bo."""
+    hd = heads * d
+    x = _bf16(gen, n, l, c)
+    g = torch.rand(c, generator=gen, device="cuda") + 0.5
+    b = _vec(gen, c)
+    wq, wk, wv = (block_weights(gen, hd, c).t() for _ in range(3))
+    wo = block_weights(gen, c, hd).t()
+    return x, g, b, wq, wk, wv, wo, _vec(gen, c)
+
+
+def ff_block_inputs(gen, n, l, c):
+    """x, LN scale and bias, w1, b1, w2, b2 (JAX layouts)."""
+    x = _bf16(gen, n, l, c)
+    g = torch.rand(c, generator=gen, device="cuda") + 0.5
+    b = _vec(gen, c)
+    w1 = block_weights(gen, 8 * c, c).t()
+    b1 = _vec(gen, 8 * c)
+    w2 = block_weights(gen, c, 4 * c).t()
+    return x, g, b, w1, b1, w2, _vec(gen, c)
+
+
+def gemm_calls(gen):
+    """Every GEMM launch at every shape of the fused blocks and the probe."""
+    for label, n, l, c, heads, d in ATTN_BLOCK_SHAPES:
+        yield from attn_block_gemms(label, *attn_block_inputs(gen, n, l, c, heads, d), heads, d,
+                                    gen)
+    for label, n, l, c in FF_BLOCK_SHAPES:
+        yield from ff_block_gemms(label, *ff_block_inputs(gen, n, l, c), gen)
+    for m, k in MATMUL_SHAPES:
+        yield matmul_gemm(m, k, gen)
+
+
+def gemm_error(call: GemmCall) -> float:
+    """The worst own error over rms of ``call``'s outputs (as just run)."""
+    return max(measure.error_record(out, ref, call.residual)["err_over_rms"]
+               for out, ref in zip(call.outs, call.refs))
+
+
+def compare_gemm(libs, args, card: str) -> None:
+    gen = torch.Generator("cuda").manual_seed(0)
+    for call in gemm_calls(gen):
+        label = f"{call.entry} {call.shape}"
+        if args.only and not any(text in label for text in args.only):
+            continue
+        errs = {}
+        for name, ls in libs.items():
+            call.run(ls[call.source])
+            errs[name] = gemm_error(call)
+        times = in_turns({name: (lambda lib=ls[call.source]: call.run(lib))
+                          for name, ls in libs.items()}, args.rounds, None)
+        bound_ms, bound_by = measure.bound(call.flops, call.moved)
+        rec = dict(kernel="gemm", entry=call.entry, shape=call.shape, bound_ms=bound_ms,
+                   bound_by=bound_by, cublas_ms=measure.time_ms(call.library), card=card)
+        for name, ts in times.items():
+            rec[name] = dict(ms=_mean(ts), err_over_rms=errs[name], turns=ts)
+        rec["this_over_other"] = rec["this"]["ms"] / rec["other"]["ms"]
+        print(json.dumps(rec), flush=True)
+        torch.cuda.empty_cache()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", required=True, type=Path, help="another checkout's root")
+    ap.add_argument("--kernel", choices=sorted(SOURCES), default="bwd",
+                    help="which kernel's sources to compare (default: bwd)")
+    ap.add_argument("--rounds", type=int, default=2, help="turn pairs per shape")
+    ap.add_argument("--only", action="append", default=[],
+                    help="time only the shapes whose label contains TEXT (repeatable)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_compare: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = measure.card_line()
+    libs = load_libs(args.kernel, args.other)
+    {"bwd": compare_bwd, "fwd": compare_fwd, "gemm": compare_gemm}[args.kernel](libs, args, card)
+    print(card, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

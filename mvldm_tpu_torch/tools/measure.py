@@ -1,6 +1,6 @@
 """Device timing, lower bounds and error records on one NVIDIA H100,
 shared by ``chip_smoke.py``, :mod:`mvldm_tpu_torch.tools.bench_attn_micro`
-and :mod:`mvldm_tpu_torch.tools.flash_bwd_compare`.
+and :mod:`mvldm_tpu_torch.tools.kernel_compare`.
 
 Peaks are the H100 SXM's published dense rates at its full 700 W power
 limit; a card set below it runs slower, so every time is reported beside

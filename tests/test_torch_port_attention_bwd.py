@@ -25,7 +25,7 @@ from mvldm_tpu.ops.fused_ff import fused_ln_geglu_ff as jax_fused_ff
 from mvldm_tpu_torch.ops import attention as port_attn
 from mvldm_tpu_torch.ops.fused_attn import fused_ln_self_attention
 from mvldm_tpu_torch.ops.fused_ff import fused_ln_geglu_ff
-from mvldm_tpu_torch.tools import flash_bwd_compare, measure
+from mvldm_tpu_torch.tools import kernel_compare, measure
 
 from tests.test_torch_port_ops import _attn_inputs, _bias, _ff_inputs, _qkv, _t
 
@@ -165,14 +165,14 @@ def test_bwd_kernel_wrappers_refuse_cpu_tensors(monkeypatch, which):
 def test_bwd_compare_tool_needs_a_card(capsys):
     """The one-call comparison of two backward builds exits non-zero, with
     no result line, where there is no CUDA device."""
-    assert flash_bwd_compare.main(["--other", "."]) == 2
+    assert kernel_compare.main(["--other", "."]) == 2
     assert capsys.readouterr().out == ""
 
 
 def test_bwd_compare_tool_covers_the_training_shapes():
     """Its shapes are every attention of a training step: the joint one at
     each resolution with the view bias, the two per-frame ones without."""
-    shapes = flash_bwd_compare.TRAIN_SHAPES
+    shapes = kernel_compare.TRAIN_SHAPES
     assert len({label for label, *_ in shapes}) == len(shapes) == 12
     for label, b, h, l, d, with_bias in shapes:
         assert with_bias == label.startswith("joint")

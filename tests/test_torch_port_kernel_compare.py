@@ -1,0 +1,74 @@
+"""The one-call kernel comparison tool (``mvldm_tpu_torch.tools.kernel_compare``)
+and the channel gate of the LN-prologue kernels, on the CPU: the tool's
+shapes and its refusal without a card. Its timings come only from the card."""
+
+import pytest
+import torch
+
+from mvldm_tpu_torch.ops import fused_attn
+from mvldm_tpu_torch.tools import kernel_compare
+
+
+@pytest.mark.parametrize("kernel", ["bwd", "fwd", "gemm"])
+def test_compare_tool_needs_a_card(capsys, kernel):
+    """Every --kernel exits non-zero, with no result line, without a card."""
+    assert kernel_compare.main(["--other", ".", "--kernel", kernel]) == 2
+    assert capsys.readouterr().out == ""
+
+
+def test_compare_tool_refuses_an_unknown_kernel():
+    with pytest.raises(SystemExit):
+        kernel_compare.main(["--other", ".", "--kernel", "conv"])
+
+
+def test_fwd_shapes_cover_sampling_and_training():
+    """The forward comparison covers every sampling shape without the lse
+    and every training shape's forward with it."""
+    shapes = kernel_compare.fwd_shapes()
+    assert len({s[0] for s in shapes}) == len(shapes)
+    n_sampling = len(kernel_compare.SAMPLING_SHAPES)
+    assert [s[1:6] for s in shapes[:n_sampling]] == [
+        tuple(s[1:]) for s in kernel_compare.SAMPLING_SHAPES]
+    assert [s[1:6] for s in shapes[n_sampling:]] == [
+        tuple(s[1:]) for s in kernel_compare.TRAIN_SHAPES]
+    assert not any(s[6] for s in shapes[:n_sampling])
+    assert all(s[6] for s in shapes[n_sampling:])
+    assert {s[4] for s in shapes} == {40, 64, 80, 160, 512}
+
+
+def test_gemm_shapes_are_the_fused_blocks_and_the_probe():
+    """The GEMM comparison runs the fused blocks at their main-path shapes
+    (C within the kernels' gate, head dims multiples of 8) and the matmul
+    probe's two bf16 cases."""
+    for _, n, l, c, heads, d in kernel_compare.ATTN_BLOCK_SHAPES:
+        assert c <= fused_attn.MAX_KERNEL_CHANNELS and d % 8 == 0 and n == 10
+        assert heads * d == c
+    for _, n, l, c in kernel_compare.FF_BLOCK_SHAPES:
+        assert c <= fused_attn.MAX_KERNEL_CHANNELS and n == 10
+    assert kernel_compare.MATMUL_SHAPES == [(4096, 1024), (8192, 512)]
+    assert set(kernel_compare.SOURCES["gemm"]) == {"fused_ln_attn", "fused_ln_geglu_ff",
+                                                    "micro_matmul"}
+
+
+@pytest.mark.parametrize("c,ok", [(8, True), (320, True), (640, True), (644, False),
+                                  (648, False), (1280, False)])
+def test_kernel_channel_gate(c, ok):
+    """The LN-prologue kernels keep 128 rows of LN(x) resident: C % 8 == 0
+    and C <= 640, the JAX package's fused-block gate in bf16."""
+    if ok:
+        fused_attn.check_kernel_channels(c, "t")
+    else:
+        with pytest.raises(ValueError, match="C <= 640"):
+            fused_attn.check_kernel_channels(c, "t")
+    assert fused_attn.use_fused(c, torch.bfloat16) == (c <= 640)
+
+
+def test_in_turns_order(monkeypatch):
+    """Two builds are timed this, other, other, this in every round."""
+    order = []
+    monkeypatch.setattr(kernel_compare.measure, "time_ms",
+                        lambda fn, iters=None: fn() or float(len(order)))
+    times = kernel_compare.in_turns({"this": lambda: order.append("this"),
+                                     "other": lambda: order.append("other")}, 2, None)
+    assert order == ["this", "other", "other", "this"] * 2
+    assert [len(t) for t in times.values()] == [4, 4]

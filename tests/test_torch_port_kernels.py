@@ -322,3 +322,166 @@ def test_micro_attention_refuses_unserved_head_dims(cuda):
     q = torch.zeros(1, 1, 64, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         micro.flash(q, q, q, 0.1)
+
+
+# ------------------------------------- the wgmma GEMM tile and flash forward
+
+@pytest.mark.parametrize("m,n,k", [
+    (1, 8, 8),          # K = 8: one zero-filled k step
+    (130, 136, 8),      # M, N one past a tile
+    (257, 264, 200),    # K not a multiple of the 64-deep ring stage
+    (129, 1000, 328),   # more k steps than ring stages, ragged N
+    (300, 72, 1032),
+    (3000, 1224, 200),  # 256-row blocks (enough of them to fill the card), ragged
+])
+def test_gemm_tile_edges(cuda, m, n, k):
+    """The probe's plain product (A streamed, B read MN-major as (K, N))
+    at ragged M, N and K, in 128-row blocks and, where they fill the card,
+    256-row blocks whose output leaves through shared memory."""
+    gen = torch.Generator().manual_seed(m + n + k)
+    a = torch.randn((m, k), generator=gen).to(cuda, torch.bfloat16)
+    b = torch.randn((k, n), generator=gen).to(cuda, torch.bfloat16)
+    out = micro.matmul(a, b)
+    torch.cuda.synchronize()
+    assert_kernel_close(out, micro.matmul_reference(a.float(), b.float()))
+
+
+def _ff_inputs(gen, n, l, c, mean, device):
+    x = (torch.randn((n, l, c), generator=gen) + mean).to(device, torch.bfloat16)
+    g = (torch.rand(c, generator=gen) + 0.5).to(device)
+    b = (torch.randn(c, generator=gen) * 0.1).to(device)
+    w1 = _randn(gen, 8 * c, c, scale=c ** -0.5, device=device).t()
+    b1 = (torch.randn(8 * c, generator=gen) * 0.1).to(device)
+    w2 = _randn(gen, c, 4 * c, scale=(4 * c) ** -0.5, device=device).t()
+    b2 = (torch.randn(c, generator=gen) * 0.1).to(device)
+    return x, g, b, w1, b1, w2, b2
+
+
+@pytest.mark.parametrize("n,l,c,mean", [
+    (1, 100, 72, 0.0),     # K = 72 (a ragged second 64-deep stage), N = 288, 72
+    (2, 129, 320, 30.0),   # LN prologue at C = 320 with a large row mean
+    (1, 200, 640, -30.0),  # C = 640: the largest resident LN(x) block
+    (3, 64, 8, 0.0),       # C = 8
+])
+def test_fused_ff_gemm_edges(cuda, n, l, c, mean):
+    gen = torch.Generator().manual_seed(c + l)
+    args = _ff_inputs(gen, n, l, c, mean, cuda)
+    out = fused_ln_geglu_ff(*args)
+    torch.cuda.synchronize()
+    x, g, b, w1, b1, w2, b2 = args
+    ref = fused_ln_geglu_ff_reference(x.float(), g, b, w1.float(), b1, w2.float(), b2)
+    assert_kernel_close(out, ref, residual=x)
+
+
+@pytest.mark.parametrize("n,l,c,heads,d,mean", [
+    (1, 100, 320, 8, 40, 0.0),    # the kAHeads gather / kEpiQkv scatter at D = 40
+    (2, 130, 640, 10, 64, 30.0),  # D = 64, C = 640, large row mean
+    (1, 77, 640, 8, 80, 0.0),     # D = 80, ragged L
+])
+def test_fused_attn_gemm_edges(cuda, n, l, c, heads, d, mean):
+    gen = torch.Generator().manual_seed(c + l + d)
+    x = (torch.randn((n, l, c), generator=gen) + mean).to(cuda, torch.bfloat16)
+    g = (torch.rand(c, generator=gen) + 0.5).to(cuda)
+    b = (torch.randn(c, generator=gen) * 0.1).to(cuda)
+    ws = _attn_weights(gen, c, heads * d, cuda)
+    bo = (torch.randn(c, generator=gen) * 0.1).to(cuda)
+    out = fused_ln_self_attention(x, g, b, *ws, bo, heads, d)
+    torch.cuda.synchronize()
+    ref = fused_ln_self_attention_reference(x.float(), g, b, *(w.float() for w in ws),
+                                            bo, heads, d)
+    assert_kernel_close(out, ref, residual=x)
+
+
+@pytest.mark.parametrize("n,l,c,heads,d", [(1, 100, 320, 8, 40), (2, 130, 640, 10, 64),
+                                           (1, 77, 640, 8, 80)])
+def test_gemm_launches_alone(cuda, n, l, c, heads, d):
+    """Each GEMM entry on its own against its plain version: LN + QKV
+    (scatter to heads), the head-merging output projection, LN + W1 with
+    GEGLU (h and gate rows stacked in one B tile) and W2 with the residual
+    epilogue, as kernel_compare and chip_smoke.py time them."""
+    from mvldm_tpu_torch.ops import _build
+    from mvldm_tpu_torch.tools import kernel_compare as kc
+
+    gen = torch.Generator("cuda").manual_seed(c + l)
+    calls = kc.attn_block_gemms("t", *kc.attn_block_inputs(gen, n, l, c, heads, d), heads, d, gen)
+    calls += kc.ff_block_gemms("t", *kc.ff_block_inputs(gen, n, l, c), gen)
+    for call in calls:
+        call.run(_build.load(call.source, kc.SIGNATURES[call.source]))
+        torch.cuda.synchronize()
+        assert kc.gemm_error(call) <= REL_LIMIT, call.entry
+
+
+def test_fused_blocks_refuse_wide_channels(cuda):
+    gen = torch.Generator().manual_seed(0)
+    args = _ff_inputs(gen, 1, 16, 648, 0.0, cuda)
+    with pytest.raises(ValueError, match="C <= 640"):
+        fused_ln_geglu_ff(*args)
+
+
+FWD_EDGES = [
+    # (b, h, lq, lk, d, bias)
+    (1, 2, 1, 1, 40, False),         # L = 1
+    (2, 3, 16, 16, 64, True),        # L = 16: one key tile, one warpgroup
+    (1, 2, 16, 300, 160, True),      # Lq != Lk
+    (1, 2, 300, 16, 80, False),
+    (1, 2, 1000, 1000, 40, True),    # ragged L, one warpgroup a block
+    (2, 66, 200, 200, 64, True),     # two warpgroups a block, ragged L
+    (1, 8, 5120, 5120, 40, True),    # the joint 32x32 length
+    (1, 2, 130, 70, 24, False),      # D rounded up to 32
+    (1, 2, 70, 130, 48, True),       # D = 48 on the 64-wide instance
+    (1, 2, 90, 150, 128, True),
+    (2, 1, 1000, 1000, 512, True),   # the VAE head, ragged L
+]
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d,with_bias", FWD_EDGES)
+def test_flash_forward_edges(cuda, b, h, lq, lk, d, with_bias):
+    gen = torch.Generator().manual_seed(d + lq + 7 * lk)
+    q, k, v = (_randn(gen, b, h, n, d, device=cuda) for n in (lq, lk, lk))
+    bias = None
+    if with_bias:
+        bias = torch.where(torch.rand((b, lk), generator=gen) < 0.3, -1e30, 0.0)
+        bias[:, 0] = 0.0
+        bias = bias.to(cuda)
+    if d <= 160:
+        out, lse = flash_attention(q, k, v, bias, return_lse=True)
+        torch.cuda.synchronize()
+        ref, ref_lse = attention_reference_lse(q.float(), k.float(), v.float(), bias)
+        assert_kernel_close(lse, ref_lse)
+        assert (lse - ref_lse).abs().max().item() <= 2e-2
+    else:
+        out = flash_attention(q, k, v, bias)
+        torch.cuda.synchronize()
+        ref = attention_reference(q.float(), k.float(), v.float(), bias)
+    assert_kernel_close(out, ref)
+
+
+@pytest.mark.parametrize("d", [40, 160, 512])
+def test_flash_forward_all_keys_masked_but_one(cuda, d):
+    """A row whose bias masks every key but one returns that key's value."""
+    gen = torch.Generator().manual_seed(d)
+    b, h, lq, lk = 2, 2, 70, 300
+    q, k, v = (_randn(gen, b, h, n, d, device=cuda) for n in (lq, lk, lk))
+    bias = torch.zeros((b, lk))
+    bias[1] = -1e30
+    bias[1, 217] = 0.0
+    bias = bias.to(cuda)
+    out = flash_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(out[1], v[1, :, 217:218].expand(h, lq, d))
+    assert_kernel_close(out, attention_reference(q.float(), k.float(), v.float(), bias))
+
+
+def test_wgmma_kernels_are_deterministic(cuda):
+    """The forward (both bodies), the GEMM tile and the fused blocks agree
+    bit for bit across calls: no atomics, a fixed order of every sum."""
+    gen = torch.Generator().manual_seed(5)
+    for b, h, l, d in ((2, 66, 200, 64), (1, 2, 300, 40), (1, 1, 200, 512)):
+        q, k, v = (_randn(gen, b, h, l, d, device=cuda) for _ in range(3))
+        assert torch.equal(flash_attention(q, k, v), flash_attention(q, k, v))
+    a = _randn(gen, 300, 264, device=cuda)
+    w = _randn(gen, 264, 136, device=cuda)
+    assert torch.equal(micro.matmul(a, w), micro.matmul(a, w))
+    args = _ff_inputs(gen, 2, 100, 320, 0.0, cuda)
+    assert torch.equal(fused_ln_geglu_ff(*args), fused_ln_geglu_ff(*args))
+    torch.cuda.synchronize()
