@@ -28,31 +28,45 @@ Phases, each fatal on failure (non-zero exit, no final result line):
    launch counters. Each probe call's kernel output is held against the
    plain version on the same inputs (attention two batch rows at a time),
    and the call reports device times of kernel, plain version and library
-   call (cuBLAS, SDPA, torch.exp) and the bound at its route's peak (bf16
-   989, TF32 495, FP32 FFMA 67 TFLOP/s), one JSON line per probe call.
-   Every probe kernel's launch count must rise in this run. Then flash and
-   fullk at a ragged L = 1000 against their plain versions.
+   call (cuBLAS, SDPA, torch.exp; for the f32-dot flash also SDPA on f32
+   copies of its inputs, the same function, with the backend it ran), the
+   bound at the route's peak (bf16 989 or FP32 FFMA 67 TFLOP/s, or the
+   bytes; for fullk with the max also the products its two passes run)
+   and, for flash and fullk, the exp floor, one JSON line per probe call.
+   The f32-dot flash's own error must also stay within
+   bench_attn_micro.F32_FLASH_REL_LIMIT of the rms. Every probe kernel's
+   launch count must rise in this run. Then flash and fullk at a ragged
+   L = 1000 against their plain versions.
 4. the sampling path: build_flagship("cuda") (the 0.93B SD2.1 multi-view
    UNet and the SD2.1 VAE, bf16, seeded random weights) and anchored
    sampling of one synthetic scene (1 context + 16 target frames at 256 px,
-   25 DDIM steps, CFG 3.0). Every forward kernel's launch count must rise
-   in this run.
+   25 DDIM steps, CFG 3.0). Every forward kernel's launch count must be
+   what a scene takes (SCENE_LAUNCHES), and no f32-route kernel may launch.
 5. a profile of one anchor-launch denoise step: device time by kernel
    group and the device's idle share within the profiled window
    (torch.profiler).
 6. full-width UNet parity: one batched-CFG UNet forward (2 rows x 5 views,
    32x32 latents, view mask) on the card in bf16 with the kernels against
    the host CPU in f32 with the plain versions.
-7. train-step parity: loss and UNet gradient of one training step at batch
+7. the f32 route (mvldm_tpu_torch.ops.f32_route, csrc/f32_route.cu): each
+   of its four wrappers at the f32 UNet's shapes against its plain version
+   in f32 (relative L2 within F32_KERNEL_REL_L2), with device times, the
+   bound at FP32 FFMA 67 TFLOP/s and SDPA in f32 (its backward for the
+   backward); then the seeded flagship built in f32 on the card runs the
+   UNet parity forward against the host's f32 output (F32_REL_L2_BOUND):
+   every f32 forward kernel must launch and no bf16 kernel may.
+8. train-step parity: loss and UNet gradient of one training step at batch
    1 with injected draws, the card (bf16, kernels) against the host CPU
-   (f32, plain versions).
-8. the training path: build_flagship_train("cuda") and the baseline
+   (f32, plain versions); then the same step on the f32 engine against the
+   same host step (F32_REL_L2_BOUND), every f32 kernel launched and no
+   bf16 one.
+9. the training path: build_flagship_train("cuda") and the baseline
    optimizer (AdamW, lr 2e-5, LinearLR from 5e-4 over 200 steps, clip 0.1,
    bf16 first moment) at batch 2 (2 context + 3 target views at 256 px,
    images through the frozen VAE): 1 warm-up step, 5 timed steps with the
-   launch counts of all five kernels, which must each rise, and one step
-   with block remat for its peak memory.
-9. a profile of one training step: device time by kernel group, the flash
+   launch counts of all five kernels, which must each rise (and no
+   f32-route kernel), and one step with block remat for its peak memory.
+10. a profile of one training step: device time by kernel group, the flash
    backward on its own, and the idle share.
 
 Every result is one JSON line. The last two lines are the card as
@@ -69,6 +83,7 @@ import time
 import numpy as np
 import torch
 
+from mvldm_tpu_torch.tools.bench_attn_micro import plain_by_rows
 from mvldm_tpu_torch.tools.measure import (
     bound,
     card_line,
@@ -84,6 +99,17 @@ from mvldm_tpu_torch.tools.measure import (
 # A kernel's own error, as a share of the rms of what it computes (see check).
 KERNEL_REL_LIMIT = 0.05
 UNET_REL_L2_BOUND = 3e-2
+# The f32 route on the card against the host's f32: the same f32 arithmetic
+# (TF32 off) summed in another order; a wrong term reads O(1e-2) or more. A
+# kernel on its own sums a few hundred terms (~1e-6); the UNet forward, and
+# a training step's loss and gradient, ~70 residual blocks.
+F32_KERNEL_REL_L2 = 1e-5
+F32_REL_L2_BOUND = 1e-3
+# Forward-kernel launches of one 16-frame scene (one anchor launch, two fill
+# launches), as the bf16 sampling path has taken them since the fused blocks
+# and the forward were ported.
+SCENE_LAUNCHES = {"flash_attention": 1706, "fused_ln_self_attention": 800,
+                  "fused_ln_geglu_ff": 800}
 TRAIN_LOSS_REL_BOUND = 3e-2
 TRAIN_GRAD_REL_L2_BOUND = 1e-1
 N_TARGET = 16
@@ -117,6 +143,11 @@ def check(out, ref, what: str, residual=None) -> dict:
         fail(f"{what}: kernel error {own:.4g} (max abs {rec['max_abs_err']:.4g}) "
              f"outside {KERNEL_REL_LIMIT} x rms {rms:.4g}")
     return rec
+
+
+def _counts(kernels) -> dict:
+    """Each kernel wrapper's launch count."""
+    return {fn.__name__: fn.launches for fn in kernels}
 
 
 # --------------------------------------------------------------- kernels
@@ -323,6 +354,117 @@ def flash_bwd_phase(card: str, gen) -> dict:
     return {name: dict(rec, max_abs_err=max_err[name]) for name, rec in out_recs.items()}
 
 
+# ----------------------------------------------------- the f32 route
+
+def _f32_check(got, want, what: str) -> dict:
+    """An f32 route kernel against its plain version in f32: relative L2
+    within F32_KERNEL_REL_L2."""
+    rel = (torch.linalg.norm(got.double() - want.double())
+           / torch.linalg.norm(want.double())).item()
+    if not torch.isfinite(got).all() or not rel <= F32_KERNEL_REL_L2:
+        fail(f"{what}: f32 relative L2 {rel:.4g} > {F32_KERNEL_REL_L2}")
+    return dict(max_abs_err=(got - want).abs().max().item(), rel_l2=rel,
+                rel_l2_limit=F32_KERNEL_REL_L2)
+
+
+def f32_kernels_phase(card: str, gen) -> dict:
+    """The f32 route's four wrappers (csrc/f32_route.cu) at the f32 UNet's
+    shapes (the joint 32x32 attention with its CFG bias, and the C = 320
+    fused blocks, the widest that take the fused path in f32) against their
+    plain versions in f32, with device times, the bound at the FP32 FFMA
+    rate (67 TFLOP/s) or the bytes, and the library call: SDPA in f32 and
+    its backward; the fused blocks have none (their decomposed path beside
+    them)."""
+    import torch.nn.functional as F
+
+    from mvldm_tpu_torch.ops.attention import (
+        attention_bwd_reference,
+        attention_reference,
+        attention_reference_lse,
+    )
+    from mvldm_tpu_torch.ops.f32_route import (
+        flash_attention_bwd_f32,
+        flash_attention_f32,
+        fused_ln_geglu_ff_f32,
+        fused_ln_self_attention_f32,
+    )
+    from mvldm_tpu_torch.ops.fused_attn import _attn_decomposed, fused_ln_self_attention_reference
+    from mvldm_tpu_torch.ops.fused_ff import fused_ln_geglu_ff_reference, ln_geglu_ff_decomposed
+    from mvldm_tpu_torch.tools.kernel_compare import (
+        ATTN_BLOCK_SHAPES,
+        FF_BLOCK_SHAPES,
+        SAMPLING_SHAPES,
+        attn_block_inputs,
+        ff_block_inputs,
+        train_inputs,
+    )
+    from mvldm_tpu_torch.tools.measure import PEAK_FP32_FLOPS
+
+    def f32(t):  # an f32 copy that keeps a transposed weight transposed
+        return t.t().float().t() if t.dim() == 2 and not t.is_contiguous() else t.float()
+
+    recs = {}
+    label, b, h, l, d, with_bias = SAMPLING_SHAPES[0]
+    q, k, v, g, bias = (None if t is None else f32(t)
+                        for t in train_inputs(gen, b, h, l, d, with_bias))
+    out, lse = flash_attention_f32(q, k, v, bias, return_lse=True)
+    ref, ref_lse = attention_reference_lse(q, k, v, bias)
+    acc = _f32_check(out, ref, f"flash_attention_f32 {label}")
+    acc["lse"] = _f32_check(lse, ref_lse, f"flash_attention_f32 lse {label}")
+    del ref, ref_lse
+    mask = bias[:, None, None, :]
+    recs["flash_attention_f32"] = dict(
+        shape=label, **acc, ms=time_ms(lambda: flash_attention_f32(q, k, v, bias)),
+        plain_ms=time_ms(lambda: attention_reference(q, k, v, bias), 3),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)),
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            4.0 * b * h * l * l * d, nbytes(q, k, v, bias, out), PEAK_FP32_FLOPS))))
+    got = flash_attention_bwd_f32(q, k, v, bias, out, lse, g)
+    want = attention_bwd_reference(q, k, v, bias, g)
+    checks = {n: _f32_check(x, y, f"flash_attention_bwd_f32 {n} {label}")
+              for n, x, y in zip(("dq", "dk", "dv", "dbias"), got, want)}
+    recs["flash_attention_bwd_f32"] = dict(
+        shape=label, max_abs_err=max(c["max_abs_err"] for c in checks.values()), **checks,
+        ms=time_ms(lambda: flash_attention_bwd_f32(q, k, v, bias, out, lse, g)),
+        plain_ms=time_ms(lambda: attention_bwd_reference(q, k, v, bias, g), 3),
+        library_ms=sdpa_bwd_ms(q, k, v, bias, g, 5),
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            10.0 * b * h * l * l * d, nbytes(q, k, v, out, g, lse, bias, *got),
+            PEAK_FP32_FLOPS))))
+    del q, k, v, g, out, lse, got, want
+    torch.cuda.empty_cache()
+
+    label, n, l, c, heads, d = ATTN_BLOCK_SHAPES[0]
+    args = (*(f32(t) for t in attn_block_inputs(gen, n, l, c, heads, d)), heads, d)
+    x = args[0]
+    out = fused_ln_self_attention_f32(*args)
+    hd = heads * d
+    recs["fused_ln_self_attention_f32"] = dict(
+        shape=label, **_f32_check(out - x, fused_ln_self_attention_reference(*args) - x,
+                                  f"fused_ln_self_attention_f32 {label}"),
+        ms=time_ms(lambda: fused_ln_self_attention_f32(*args)),
+        plain_ms=time_ms(lambda: fused_ln_self_attention_reference(*args), 3),
+        library_ms=None, decomposed_ms=time_ms(lambda: _attn_decomposed(*args, 1e-6)),
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            8.0 * n * l * c * hd + 4.0 * n * heads * l * l * d, nbytes(*args[:8], out),
+            PEAK_FP32_FLOPS))))
+    label, n, l, c = FF_BLOCK_SHAPES[0]
+    args = tuple(f32(t) for t in ff_block_inputs(gen, n, l, c))
+    x = args[0]
+    out = fused_ln_geglu_ff_f32(*args)
+    recs["fused_ln_geglu_ff_f32"] = dict(
+        shape=label, **_f32_check(out - x, fused_ln_geglu_ff_reference(*args) - x,
+                                  f"fused_ln_geglu_ff_f32 {label}"),
+        ms=time_ms(lambda: fused_ln_geglu_ff_f32(*args)),
+        plain_ms=time_ms(lambda: fused_ln_geglu_ff_reference(*args), 3),
+        library_ms=None, decomposed_ms=time_ms(lambda: ln_geglu_ff_decomposed(*args)),
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            24.0 * n * l * c * c, nbytes(*args, out), PEAK_FP32_FLOPS))))
+    for name, rec in recs.items():
+        emit(phase="kernel", kernel=name, route="f32", **rec, card=card)
+    return recs
+
+
 # ------------------------------------------------ attention microbenchmark
 
 # Where the four probe kernels stand and what they replace; the kernels line
@@ -338,24 +480,21 @@ MICRO_RAGGED_L = 1000  # not a multiple of the kernels' 64-row tiles
 
 
 def _jsonable(v):
-    return v if v is None or isinstance(v, (bool, int, float, str)) else str(v)
+    return v if v is None or isinstance(v, (bool, int, float, str, dict, list)) else str(v)
 
 
 def _plain_by_rows(plain, *inputs):
     """An attention probe's plain version over MICRO_PLAIN_ROWS batch rows at
-    a time (its f32 score matrix at b = 16, L = 5120 would take 13.4 GB);
-    the matmul and exp plain versions in one call."""
-    if inputs[0].dim() != 4:
-        return plain(*inputs)
-    return torch.cat([plain(*(t[i:i + MICRO_PLAIN_ROWS] for t in inputs))
-                      for i in range(0, inputs[0].shape[0], MICRO_PLAIN_ROWS)])
+    a time (bench_attn_micro.plain_by_rows)."""
+    return plain_by_rows(plain, *inputs, rows=MICRO_PLAIN_ROWS)
 
 
 def micro_check(case, out) -> dict:
     """A probe kernel's output against its plain version on the same inputs:
-    bf16 outputs by ``check`` against the plain version on f32 inputs; the
-    f32 matmul within relative L2 1e-5 of the product in float64, exp within
-    1e-6 relative of exp in float64. Adds the plain version's device time."""
+    bf16 outputs by ``check`` against the plain version on f32 inputs, the
+    f32-dot flash also within its case's ``rel_limit``; the f32 matmul
+    within relative L2 1e-5 of the product in float64, exp within 1e-6
+    relative of exp in float64. Adds the plain version's device time."""
     what = f"micro probe on {[(tuple(t.shape), str(t.dtype)) for t in case.inputs]}"
     if out.dtype == torch.float32:
         x64 = [t.double() for t in case.inputs]
@@ -373,6 +512,11 @@ def micro_check(case, out) -> dict:
     else:
         ref = _plain_by_rows(case.plain, *(t.float() for t in case.inputs))
         acc = check(out, ref, what)
+        if case.rel_limit is not None:  # the f32-dot flash: the precision its split p is for
+            acc["err_over_rms_limit"] = case.rel_limit
+            if not acc["err_over_rms"] <= case.rel_limit:
+                fail(f"{what}: kernel error over rms {acc['err_over_rms']:.4g} "
+                     f"> {case.rel_limit}")
     del out, ref
     acc["plain_ms"] = time_ms(lambda: _plain_by_rows(case.plain, *case.inputs), 3)
     return acc
@@ -417,6 +561,22 @@ def micro_phase(card: str):
     return records, launches
 
 
+def micro_kernel_record(name: str, r: dict, launches: int) -> dict:
+    """A probe kernel's entry of the kernels line: its first case of the run
+    and the bound (the exp floor and the route's own products stay on the
+    micro lines). The f32-dot flash's library_ms is SDPA on f32 copies (the
+    same function), with the bf16 SDPA beside it."""
+    rec = dict(name=f"bench_attn_micro.{name}", route="cuda", source=MICRO_META[name][0],
+               replaces=MICRO_META[name][1], launches=launches,
+               launches_by_path={"micro": launches}, max_abs_err=r["max_abs_err"], ms=r["ms"],
+               plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+               kernel_route=r["route"], library_ms=r["library_ms"], timed_shape=r["shape"])
+    if "library_f32_ms" in r:
+        rec.update(library_ms=r["library_f32_ms"], library_backend=r["library_f32_backend"],
+                   library_bf16_ms=r["library_ms"])
+    return rec
+
+
 # ------------------------------------------------------------- main path
 
 def make_scene(n_frames: int, hw: int):
@@ -439,7 +599,7 @@ def make_scene(n_frames: int, hw: int):
     return ctx, tgt
 
 
-def main_path_phase(card: str, kernels) -> "object":
+def main_path_phase(card: str, kernels, f32_kernels) -> "object":
     from mvldm_tpu_torch.builder import IMAGE_HW, build_flagship
     from mvldm_tpu_torch.diffusion.video_sampling import VideoSampler
 
@@ -451,14 +611,14 @@ def main_path_phase(card: str, kernels) -> "object":
     sampler = VideoSampler(engine, num_anchors_views=4)
     ctx, tgt = make_scene(N_TARGET, IMAGE_HW)
 
-    for fn in kernels:
+    for fn in kernels + f32_kernels:
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     frames = sampler.sample_anchored(ctx, tgt, torch.Generator("cuda").manual_seed(1))
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in kernels}
+    launches, f32_launches = _counts(kernels), _counts(f32_kernels)
 
     if sorted(frames) != list(range(1, N_TARGET + 1)):
         fail(f"anchored sampling returned frames {sorted(frames)}")
@@ -470,6 +630,10 @@ def main_path_phase(card: str, kernels) -> "object":
     idle = [name for name, n in launches.items() if n == 0]
     if idle:
         fail(f"kernels never launched on the main path: {idle}")
+    if launches != SCENE_LAUNCHES:
+        fail(f"a scene launched {launches}, not {SCENE_LAUNCHES}")
+    if any(f32_launches.values()):
+        fail(f"the bf16 sampling path launched f32 kernels: {f32_launches}")
 
     t0 = time.perf_counter()
     sampler.sample_anchored(ctx, tgt, torch.Generator("cuda").manual_seed(2))
@@ -478,7 +642,7 @@ def main_path_phase(card: str, kernels) -> "object":
     emit(phase="main_path", what="anchored sampling, 1 context + 16 targets, 256 px, "
          "25 DDIM steps, CFG 3.0, bf16", frames=len(frames),
          first_pass_s=cold_s, second_pass_s=warm_s,
-         frames_per_s=N_TARGET / warm_s, launches=launches,
+         frames_per_s=N_TARGET / warm_s, launches=launches, f32_launches=f32_launches,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
          frame_mean=float(np.mean([img.mean() for img in frames.values()])),
          card=card)
@@ -588,15 +752,56 @@ def unet_parity_phase(card: str, engine) -> None:
          finite=bool(torch.isfinite(gpu).all()), card=card)
     if not torch.isfinite(gpu).all() or not rel <= UNET_REL_L2_BOUND:
         fail(f"UNet parity rel L2 {rel:.4g} > {UNET_REL_L2_BOUND}")
-    return cpu_engine
+    return cpu_engine, (x, t, mask), cpu
+
+
+def f32_phase(card: str, inputs, cpu_out, kernels, f32_kernels):
+    """An f32 model on the card: the seeded flagship built in f32 there
+    (the host's weights), TF32 off for cuBLAS and cuDNN, the UNet parity
+    forward against the host's f32 output (relative L2 within
+    F32_REL_L2_BOUND; TF32 is off for the whole script, see main). Every f32
+    forward kernel must launch and no bf16 kernel may. Returns the f32
+    engine and the f32 launch counts."""
+    from mvldm_tpu_torch.builder import build_flagship
+
+    x, t, mask = inputs
+    t0 = time.perf_counter()
+    engine = build_flagship("cuda", torch.float32)
+    for fn in kernels + f32_kernels:
+        fn.launches = 0
+    with torch.inference_mode():
+        t1 = time.perf_counter()
+        gpu = engine.unet(x.cuda(), t.cuda(), view_mask=mask.cuda())
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t1
+    gpu = gpu.cpu()
+    launches, f32_launches = _counts(kernels), _counts(f32_kernels)
+    rel = (torch.linalg.norm(gpu - cpu_out) / torch.linalg.norm(cpu_out)).item()
+    finite = bool(torch.isfinite(gpu).all())
+    emit(phase="f32", what="the UNet parity forward in f32 on the card (seeded f32 weights, "
+         "TF32 off, the f32 route's kernels) vs host f32 plain", dtype=str(gpu.dtype),
+         rel_l2=rel, bound=F32_REL_L2_BOUND, finite=finite, f32_launches=f32_launches,
+         bf16_launches=launches, forward_s=forward_s, seconds=time.perf_counter() - t0,
+         card=card)
+    if not finite or not rel <= F32_REL_L2_BOUND:
+        fail(f"f32 UNet on the card: rel L2 {rel:.4g} > {F32_REL_L2_BOUND}")
+    if any(launches.values()):
+        fail(f"bf16 kernels launched on the f32 model: {launches}")
+    idle = [name for name, n in f32_launches.items() if n == 0 and "bwd" not in name]
+    if idle:
+        fail(f"f32 forward kernels never launched on the f32 model: {idle}")
+    return engine, f32_launches
 
 
 # -------------------------------------------------------------- training
 
-def train_parity_phase(card: str, engine, cpu_engine) -> None:
+def train_parity_phase(card: str, engine, cpu_engine, f32_engine, kernels, f32_kernels):
     """Loss and UNet gradient of one training step at batch 1 (2 context + 3
     target views at 256 px) with the same injected draws: the card (bf16,
-    kernels) against the host CPU (f32, plain versions), same weights."""
+    kernels) against the host CPU (f32, plain versions), same weights; then
+    the f32 engine on the card (the f32 route's kernels, TF32 off) against
+    the same host step within F32_REL_L2_BOUND, with every f32 kernel
+    launched and no bf16 one. Returns the f32 step's launch counts."""
     from mvldm_tpu_torch.builder import make_train_batch
     from mvldm_tpu_torch.diffusion.engine import TrainDraws
 
@@ -633,8 +838,32 @@ def train_parity_phase(card: str, engine, cpu_engine) -> None:
     if not finite or not loss_rel <= TRAIN_LOSS_REL_BOUND or not rel <= TRAIN_GRAD_REL_L2_BOUND:
         fail(f"train parity: loss rel {loss_rel:.4g}, grad rel L2 {rel:.4g}")
 
+    t0 = time.perf_counter()
+    f32_engine.vae.requires_grad_(False)
+    for fn in kernels + f32_kernels:
+        fn.launches = 0
+    f32_loss, f32 = loss_and_grads(f32_engine)
+    launches, f32_launches = _counts(kernels), _counts(f32_kernels)
+    loss_rel = abs(f32_loss - cpu_loss) / abs(cpu_loss)
+    num = sum((f32[n] - cpu[n]).square().sum().item() for n in cpu)
+    rel = (num / den) ** 0.5
+    finite = all(torch.isfinite(f32[n]).all() for n in f32) and np.isfinite(f32_loss)
+    emit(phase="train_parity_f32", what="the same training step in f32 on the card (the f32 "
+         "route's kernels, TF32 off) vs host f32 plain", gpu_loss=f32_loss, cpu_loss=cpu_loss,
+         loss_rel_err=loss_rel, grad_rel_l2=rel, bound=F32_REL_L2_BOUND, finite=bool(finite),
+         f32_launches=f32_launches, bf16_launches=launches,
+         seconds=time.perf_counter() - t0, card=card)
+    if not finite or not loss_rel <= F32_REL_L2_BOUND or not rel <= F32_REL_L2_BOUND:
+        fail(f"f32 train parity: loss rel {loss_rel:.4g}, grad rel L2 {rel:.4g}")
+    if any(launches.values()):
+        fail(f"bf16 kernels launched on the f32 training step: {launches}")
+    idle = [name for name, n in f32_launches.items() if n == 0]
+    if idle:
+        fail(f"f32 kernels never launched on the f32 training step: {idle}")
+    return f32_launches
 
-def train_phase(card: str, engine, kernels):
+
+def train_phase(card: str, engine, kernels, f32_kernels):
     """The training path at batch 2 with the baseline optimizer: 1 warm-up
     step, TRAIN_STEPS timed steps with launch counters, then one step with
     block remat for its peak memory. Returns what the profile phase reuses."""
@@ -665,7 +894,7 @@ def train_phase(card: str, engine, kernels):
     warm_s = time.perf_counter() - t0
     losses = [metrics["loss/diffusion"]]
 
-    for fn in kernels:
+    for fn in kernels + f32_kernels:
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -674,7 +903,7 @@ def train_phase(card: str, engine, kernels):
         losses.append(metrics["loss/diffusion"])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in kernels}
+    launches, f32_launches = _counts(kernels), _counts(f32_kernels)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(x) for x in losses]
 
@@ -709,6 +938,7 @@ def train_phase(card: str, engine, kernels):
          step_ms=dt * 1e3 / TRAIN_STEPS, peak_memory_gb=peak, losses=losses,
          grad_norm_last=metrics["grad_norm"],
          launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
+         f32_launches=f32_launches,
          remat_step_s=remat_s, remat_peak_memory_gb=remat_peak,
          loss_backward_peak_above_held_gb=activations, card=card)
     if not all(np.isfinite(x) for x in losses):
@@ -716,6 +946,8 @@ def train_phase(card: str, engine, kernels):
     idle = [name for name, n in launches.items() if n == 0]
     if idle:
         fail(f"kernels never launched on the training path: {idle}")
+    if any(f32_launches.values()):
+        fail(f"the bf16 training path launched f32 kernels: {f32_launches}")
     return state, step, batch, gen, launches
 
 
@@ -744,6 +976,7 @@ def main() -> int:
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
     )
+    from mvldm_tpu_torch.ops.f32_route import KERNELS as F32_KERNELS
     from mvldm_tpu_torch.ops.fused_attn import fused_ln_self_attention
     from mvldm_tpu_torch.ops.fused_ff import fused_ln_geglu_ff
 
@@ -764,17 +997,23 @@ def main() -> int:
     }
     micro_records, micro_launches = micro_phase(card)
     forward = (flash_attention, fused_ln_self_attention, fused_ln_geglu_ff)
-    engine, sampling_launches = main_path_phase(card, forward)
+    backward = (flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    engine, sampling_launches = main_path_phase(card, forward, F32_KERNELS)
     profile_phase(card, engine)
-    cpu_engine = unet_parity_phase(card, engine)
+    cpu_engine, unet_inputs, cpu_out = unet_parity_phase(card, engine)
     del engine
     torch.cuda.empty_cache()
+    f32_results = f32_kernels_phase(card, gen)
+    f32_engine, f32_forward_launches = f32_phase(card, unet_inputs, cpu_out,
+                                                 forward + backward, F32_KERNELS)
 
     engine = build_flagship_train("cuda")
-    train_parity_phase(card, engine, cpu_engine)
-    del cpu_engine
+    f32_step_launches = train_parity_phase(card, engine, cpu_engine, f32_engine,
+                                           forward + backward, F32_KERNELS)
+    del cpu_engine, f32_engine
+    torch.cuda.empty_cache()
     state, step, batch, train_gen, train_launches = train_phase(
-        card, engine, forward + (flash_attention_bwd_dq, flash_attention_bwd_dkv))
+        card, engine, forward + backward, F32_KERNELS)
     train_profile_phase(card, state, step, batch, train_gen)
 
     meta = {
@@ -799,14 +1038,18 @@ def main() -> int:
              library_ms=r["library_ms"], timed_shape=r["shape"])
         for name, r in results.items()
     ] + [
-        dict(name=f"bench_attn_micro.{name}", route="cuda", source=MICRO_META[name][0],
-             replaces=MICRO_META[name][1], launches=micro_launches[name],
-             launches_by_path={"micro": micro_launches[name]},
+        dict(name=name, route="cuda", source="mvldm_tpu_torch/csrc/f32_route.cu",
+             replaces=meta[name.replace("_f32", "")][1] if "bwd" not in name else
+             f"{meta['flash_attention_bwd_dq'][1]}, :324",
+             launches=f32_forward_launches[name] + f32_step_launches[name],
+             launches_by_path={"f32_forward": f32_forward_launches[name],
+                               "f32_train_step": f32_step_launches[name]},
              max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
              bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
              timed_shape=r["shape"])
-        for name, r in micro_records.items()
-    ])
+        for name, r in f32_results.items()
+    ] + [micro_kernel_record(name, r, micro_launches[name])
+         for name, r in micro_records.items()])
     emit(phase="total", seconds=time.perf_counter() - t_start, card=card)
     print(card, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),

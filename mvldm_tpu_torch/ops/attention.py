@@ -20,7 +20,8 @@ Counterpart of ``mvldm_tpu/ops/attention.py``.
   :func:`flash_attention_bwd` runs both.
 * :func:`attention` — the differentiable dispatcher (the counterpart of the
   JAX custom VJP): CPU tensors take the plain versions, CUDA tensors the
-  kernels, which raise on what they do not take.
+  kernels for their dtype: f32 the f32 route (``ops/f32_route.py``), any
+  other dtype the bf16 kernels above, which raise on what they do not take.
 
 Each kernel wrapper counts its launches in ``<wrapper>.launches``.
 """
@@ -34,6 +35,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from .f32_route import flash_attention_bwd_f32, flash_attention_f32
 
 NEG_INF = -1e30  # large finite negative; -inf breaks exp(m_prev - m_new) warm-up
 BWD_CHUNK = 1024  # query rows per chunk of the plain backward (JAX ``_BWD_CHUNK``)
@@ -280,10 +282,22 @@ def flash_attention_bwd(q, k, v, bias, out, lse, g, scale=None,
     return dq, dk, dv, None if db is None else db.sum(dim=1)
 
 
+def _fwd_kernel(q: torch.Tensor):
+    """The forward kernel wrapper for ``q``'s dtype on the card: f32 takes
+    the f32 route, every other dtype the bf16 kernel, which refuses what it
+    does not take. A choice by dtype; nothing is caught to fall back."""
+    return flash_attention_f32 if q.dtype == torch.float32 else flash_attention
+
+
+def _bwd_kernels(q: torch.Tensor):
+    """The backward kernels' wrapper for ``q``'s dtype (see :func:`_fwd_kernel`)."""
+    return flash_attention_bwd_f32 if q.dtype == torch.float32 else flash_attention_bwd
+
+
 class _Attention(torch.autograd.Function):
     """Forward saves (q, k, v, bias, out, lse); backward runs the two
-    backward kernels on the card and the chunked plain backward on the
-    CPU."""
+    backward kernels for the dtype on the card and the chunked plain
+    backward on the CPU."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale):
@@ -291,7 +305,7 @@ class _Attention(torch.autograd.Function):
             out = attention_reference(q, k, v, bias, scale)
             lse = None
         else:
-            out, lse = flash_attention(q, k, v, bias, scale, return_lse=True)
+            out, lse = _fwd_kernel(q)(q, k, v, bias, scale, return_lse=True)
         ctx.scale = scale
         ctx.save_for_backward(q, k, v, bias, out, lse)
         return out
@@ -303,7 +317,7 @@ class _Attention(torch.autograd.Function):
         if q.device.type == "cpu":
             dq, dk, dv, db = attention_bwd_reference(q, k, v, bias, g, ctx.scale)
         else:
-            dq, dk, dv, db = flash_attention_bwd(
+            dq, dk, dv, db = _bwd_kernels(q)(
                 q, k, v, bias, out, lse, g.contiguous(), ctx.scale, need_dbias)
         return dq, dk, dv, db if need_dbias else None, None
 
@@ -316,8 +330,9 @@ def attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Differentiable MHA: plain versions for CPU tensors, the kernels for
-    CUDA ones. Without gradients to record it runs the forward alone (no
-    lse), as sampling does.
+    CUDA ones (f32 the f32 route, other dtypes the bf16 kernels). Without
+    gradients to record it runs the forward alone (no lse), as sampling
+    does.
 
     q: (B, H, Lq, D); k/v: (B, H, Lk, D); bias: optional (B, Lk) additive key
     bias (use NEG_INF to mask)."""
@@ -327,4 +342,4 @@ def attention(
         return _Attention.apply(q, k, v, bias, scale)
     if q.device.type == "cpu":
         return attention_reference(q, k, v, bias, scale)
-    return flash_attention(q, k, v, bias, scale)
+    return _fwd_kernel(q)(q, k, v, bias, scale)

@@ -12,8 +12,10 @@ unpadded (C, H*D) q/k/v and (H*D, C) output projections; the TPU's 128-lane
 * :func:`fused_ln_self_attention` — CPU tensors take the plain version; CUDA
   tensors take the kernels of ``csrc/fused_ln_attn.cu`` (LN + QKV GEMM with
   the scale folded into q, then the flash kernel, then the out-projection
-  with the bias + residual epilogue), or raise.
-  ``fused_ln_self_attention.launches`` counts calls that launched them.
+  with the bias + residual epilogue), or raise; f32 ones the f32 route
+  (``ops/f32_route.fused_ln_self_attention_f32``).
+  ``fused_ln_self_attention.launches`` counts calls that launched the bf16
+  kernels.
   Differentiable: the backward recomputes through the decomposed path
   (the JAX ``_attn_bwd``), whose attention core is ``attention``'s
   autograd Function, so on the card its backward is the flash backward
@@ -36,6 +38,7 @@ import torch.nn.functional as F
 
 from . import _build
 from .attention import _launch_flash, attention, attention_reference
+from .f32_route import fused_ln_self_attention_f32
 
 MAX_FUSED_CHANNEL_BYTES = 640 * 2
 MAX_KERNEL_CHANNELS = 640  # csrc/gemm_tile.cuh kMaxLnK: 128 rows of LN(x) resident
@@ -139,8 +142,8 @@ class _FusedLnSelfAttention(torch.autograd.Function):
         if x.device.type == "cpu":
             return fused_ln_self_attention_reference(
                 x, ln_scale, ln_bias, wq, wk, wv, wo, bo, num_heads, head_dim, eps)
-        return _fused_attn_cuda(x, ln_scale, ln_bias, wq, wk, wv, wo, bo,
-                                num_heads, head_dim, eps)
+        return _on_card(x)(x, ln_scale, ln_bias, wq, wk, wv, wo, bo,
+                           num_heads, head_dim, eps)
 
     @staticmethod
     def backward(ctx, g):
@@ -162,7 +165,15 @@ def fused_ln_self_attention(x, ln_scale, ln_bias, wq, wk, wv, wo, bo,
         return _FusedLnSelfAttention.apply(*args, num_heads, head_dim, eps)
     if x.device.type == "cpu":
         return fused_ln_self_attention_reference(*args, num_heads, head_dim, eps)
-    return _fused_attn_cuda(*args, num_heads, head_dim, eps)
+    return _on_card(x)(*args, num_heads, head_dim, eps)
+
+
+def _on_card(x: torch.Tensor):
+    """The kernels for ``x``'s dtype on the card: f32 the f32 route
+    (``ops/f32_route.py``), every other dtype the bf16 kernels, which refuse
+    what they do not take. A choice by dtype; nothing is caught to fall
+    back."""
+    return fused_ln_self_attention_f32 if x.dtype == torch.float32 else _fused_attn_cuda
 
 
 def check_kernel_channels(c: int, what: str) -> None:

@@ -9,7 +9,8 @@ Counterpart of ``mvldm_tpu/ops/fused_ff.py``.
 * :func:`fused_ln_geglu_ff` — CPU tensors take the plain version; CUDA
   tensors take the two kernels of ``csrc/fused_ln_geglu_ff.cu`` (LN + W1
   GEMM with the GEGLU epilogue, then W2 with the bias + residual epilogue),
-  or raise. ``fused_ln_geglu_ff.launches`` counts calls that launched them.
+  or raise; f32 ones the f32 route (``ops/f32_route.fused_ln_geglu_ff_f32``).
+  ``fused_ln_geglu_ff.launches`` counts calls that launched the bf16 kernels.
   Differentiable: the backward recomputes through the decomposed path (the
   JAX ``_ff_bwd``); no kernel is involved there.
 
@@ -26,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .f32_route import fused_ln_geglu_ff_f32
 from .fused_attn import (
     _layer_norm,
     _recompute_grads,
@@ -76,7 +78,7 @@ class _FusedLnGegluFF(torch.autograd.Function):
         ctx.save_for_backward(x, ln_scale, ln_bias, w1, b1, w2, b2)
         if x.device.type == "cpu":
             return fused_ln_geglu_ff_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, eps)
-        return _fused_ff_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, eps)
+        return _on_card(x)(x, ln_scale, ln_bias, w1, b1, w2, b2, eps)
 
     @staticmethod
     def backward(ctx, g):
@@ -95,7 +97,14 @@ def fused_ln_geglu_ff(x, ln_scale, ln_bias, w1, b1, w2, b2,
         return _FusedLnGegluFF.apply(*args, eps)
     if x.device.type == "cpu":
         return fused_ln_geglu_ff_reference(*args, eps)
-    return _fused_ff_cuda(*args, eps)
+    return _on_card(x)(*args, eps)
+
+
+def _on_card(x: torch.Tensor):
+    """The kernels for ``x``'s dtype on the card: f32 the f32 route
+    (``ops/f32_route.py``), every other dtype the bf16 kernels, which refuse
+    what they do not take."""
+    return fused_ln_geglu_ff_f32 if x.dtype == torch.float32 else _fused_ff_cuda
 
 
 def _launch_geglu(lib, x, g, b, w1, b1, act, eps: float) -> None:

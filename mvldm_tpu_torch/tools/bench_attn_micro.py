@@ -27,9 +27,12 @@ Each of the TPU tool's four Pallas kernels has here
   ``check`` that receives the kernel's output (``chip_smoke.py`` holds it
   against the plain version there). It times the kernel on the card (CUDA
   graph replay between two events, :func:`measure.time_ms`), prints the
-  TPU tool's line with the bound, the share of the bound and a library
-  call's time (cuBLAS, SDPA, ``torch.exp``; timed as a yardstick only), and
-  returns those numbers as a dict.
+  TPU tool's line with the bound of the route the kernel takes (the
+  products it runs at their tensor-core or FFMA peak, or its bytes), the
+  share of the bound, the exp floor of the attention probes and a library
+  call's time (cuBLAS, SDPA, ``torch.exp``; for the f32-dot flash also SDPA
+  on f32 copies, the same function; timed as yardsticks only), and returns
+  those numbers as a dict.
 
 Where it differs from the TPU tool:
 * inputs are seeded ``torch.randn``, not ones;
@@ -47,7 +50,6 @@ Where it differs from the TPU tool:
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import math
 import sys
@@ -76,6 +78,13 @@ FULLK_MODES = {True: 0, False: 1, "none": 2}
 # the bf16 flash, csrc/flash_attn_fwd.cu) instantiates.
 FULLK_DIMS = (48, 80)
 FLASH_DIMS = (48, 80, 128, 160)
+# The f32-dot flash's own error (measure.error_record's err_over_rms) against
+# its plain version with the unrounded p: the hi + lo split of p keeps ~16
+# bits (H100 80GB HBM3, 700 W: 1.2e-5 to 4e-5 read), TF32's p read 1e-3,
+# and the plain version with p rounded to bf16 alone reads 5e-3 to 7e-3
+# (tests/test_torch_port_micro.py); so the split is held to 1e-3, well
+# inside the 5 % every bf16 kernel is held to.
+F32_FLASH_REL_LIMIT = 1e-3
 
 
 # ------------------------------------------------------------ plain versions
@@ -200,8 +209,11 @@ def _check_attn(what: str, q, k, v, dims) -> None:
         raise ValueError(f"{what}: shape {tuple(q.shape)} outside the kernel's grid")
 
 
-def _launch_attn(entry: str, q, k, v, scale: float, *mode: int) -> torch.Tensor:
-    lib = _build.load("micro_attn", _ATTN_SIG)
+def _launch_attn(entry: str, q, k, v, scale: float, *mode: int, lib=None) -> torch.Tensor:
+    """``entry`` of ``lib`` (a build of ``csrc/micro_attn.cu``, this tree's
+    by default) into a new output, on the current stream (no checks, no
+    count)."""
+    lib = lib or _build.load("micro_attn", _ATTN_SIG)
     b, h, lq, d = q.shape
     out = torch.empty_like(q)
     err = getattr(lib, entry)(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
@@ -212,12 +224,12 @@ def _launch_attn(entry: str, q, k, v, scale: float, *mode: int) -> torch.Tensor:
 
 
 def fullk(q, k, v, scale: float, bq: int = 256, do_max: DoMax = True) -> torch.Tensor:
-    """Hand-written fullk (``csrc/micro_attn.cu``): :func:`fullk_reference`'s
-    function on bf16 (B, H, L, D) q and (B, H, Lk, D) k, v, D rounding up to
-    48 or 80. ``bq`` (the TPU's query block) is ignored: a block takes 64
-    query rows, and with ``do_max`` streams the keys twice, once for the row
-    max and once for p, l and p v, since a whole K/V row does not fit in
-    shared memory."""
+    """Hand-written fullk (``csrc/micro_attn.cu``, bf16 ``wgmma``):
+    :func:`fullk_reference`'s function on bf16 (B, H, L, D) q and (B, H, Lk,
+    D) k, v, D rounding up to 48 or 80. ``bq`` (the TPU's query block) is
+    ignored: a block takes 64 or 128 query rows, and with ``do_max`` streams
+    the keys twice, once for the row max and once for p, l and p v, since a
+    whole K/V row does not fit in shared memory."""
     _check_attn("fullk", q, k, v, FULLK_DIMS)
     if not (isinstance(do_max, bool) or do_max == "none"):
         raise ValueError(f"fullk: do_max must be True, False or 'none', got {do_max!r}")
@@ -235,11 +247,13 @@ def flash(q, k, v, scale: float, bq: int = 1024, bk: int = 1024,
     softmax on bf16 (B, H, L, D) q and (B, H, Lk, D) k, v, D rounding up to
     48, 80, 128 or 160. ``dot_dtype`` bf16 is the production forward
     (:func:`~mvldm_tpu_torch.ops.attention.flash_attention` with no bias,
-    ``csrc/flash_attn_fwd.cu``), both products on bf16 ``wgmma``; f32
-    runs them on TF32 ``mma.sync`` (``csrc/micro_attn.cu``; the bf16 q, k, v
-    are exact in TF32, p is rounded to TF32). ``bq`` and ``bk`` (the TPU's
-    query and key blocks) are ignored: each 64 query rows walk 64-key
-    tiles, masking the ragged last one."""
+    ``csrc/flash_attn_fwd.cu``), both products on bf16 ``wgmma``; f32 is
+    ``csrc/micro_attn.cu``, also on bf16 ``wgmma``: S from the bf16 q and k
+    (exact products, f32 sums, as TF32 would give), and P V as two bf16
+    products of p split into hi = bf16(p) and lo = bf16(p - hi) (~16 bits
+    of p against TF32's 11). ``bq`` and ``bk`` (the TPU's query and key
+    blocks) are ignored: each 64 query rows walk 64-key tiles, masking the
+    ragged last one."""
     _check_attn("flash", q, k, v, FLASH_DIMS)
     if dot_dtype == torch.bfloat16:
         out = flash_attention(q, k, v, None, scale)
@@ -278,40 +292,73 @@ KERNELS = (matmul, fullk, flash, exp)
 
 class Work(NamedTuple):
     """What one call does, from the shapes: the useful flops (the TPU tool's
-    count), the flops and bytes (each input read once, the output written
-    once) that the bound counts, and the peak rate of the route."""
+    count), the flops of the function at the route's precision and the
+    bytes (each input read once, the output written once) that the bound
+    counts, the peak rate of the route, the exp2 the function needs (None
+    where it is no attention), the route's name and, where the route runs
+    more products than the function needs (fullk's second pass over the
+    keys), the flops it runs (None otherwise)."""
     useful_flops: float
     flops: float
     bytes: int
     peak: float
+    n_exp: Optional[float] = None
+    route: str = ""
+    route_flops: Optional[float] = None
 
 
 class Case(NamedTuple):
     """One probe variant: its inputs and the kernel, plain and library
     (None where no single PyTorch call computes the function) callables
-    that take them."""
+    that take them; for the f32-dot flash also ``library_f32``, SDPA on f32
+    copies of the inputs made with the case (no argument), and
+    ``rel_limit``, the bound on the kernel's own error over the rms that its
+    precision is for (F32_FLASH_REL_LIMIT; None elsewhere)."""
     inputs: Tuple[torch.Tensor, ...]
     kernel: Callable[..., torch.Tensor]
     plain: Callable[..., torch.Tensor]
     library: Optional[Callable[..., torch.Tensor]]
     work: Work
+    library_f32: Optional[Callable[[], torch.Tensor]] = None
+    rel_limit: Optional[float] = None
 
 
 def matmul_work(m: int, k: int, dtype: torch.dtype) -> Work:
     flops = 2.0 * m * k * k
     size = torch.empty((), dtype=dtype).element_size()
-    peak = measure.PEAK_BF16_FLOPS if dtype == torch.bfloat16 else measure.PEAK_FP32_FLOPS
-    return Work(flops, flops, size * (2 * m * k + k * k), peak)
+    bf16 = dtype == torch.bfloat16
+    peak = measure.PEAK_BF16_FLOPS if bf16 else measure.PEAK_FP32_FLOPS
+    return Work(flops, flops, size * (2 * m * k + k * k), peak,
+                route="bf16 wgmma" if bf16 else "f32 FFMA")
 
 
-def attn_work(b: int, h: int, l: int, d: int, dp: int, peak: float) -> Work:
-    """q k^T and p v over the whole (L, L) score matrix: 4 b h L^2 d useful
-    flops at the unpadded d, 4 b h L^2 dp done; q, k, v, out in bf16."""
-    return Work(4.0 * b * h * l * l * d, 4.0 * b * h * l * l * dp, 8 * b * h * l * dp, peak)
+def attn_work(b: int, h: int, l: int, d: int, dp: int, peak: float, products: int = 2,
+              n_exp: Optional[float] = None, route: str = "") -> Work:
+    """``products`` (L, L)-sized products (q k^T, p v, and any the route
+    adds) over the whole score matrix: 4 b h L^2 d useful flops at the
+    unpadded d, 2 ``products`` b h L^2 dp run; q, k, v, out in bf16."""
+    return Work(4.0 * b * h * l * l * d, 2.0 * products * b * h * l * l * dp,
+                8 * b * h * l * dp, peak, n_exp, route)
 
 
 def exp_work(l: int) -> Work:
-    return Work(0.0, 0.0, 8 * l * l, measure.PEAK_FP32_FLOPS)
+    return Work(0.0, 0.0, 8 * l * l, measure.PEAK_FP32_FLOPS, route="expf")
+
+
+def bounds(work: Work, sm_mhz: Optional[float] = None, n_sms: Optional[int] = None) -> dict:
+    """The bound of ``work`` at its route's peak (:func:`measure.bound`),
+    ``route_bound_ms`` for the products the route runs where they are more
+    than the function's and, for an attention, its exp floor
+    (:func:`measure.exp_floor_ms`) at ``sm_mhz`` on ``n_sms`` SMs."""
+    bound_ms, bound_by = measure.bound(work.flops, work.bytes, work.peak)
+    rec = dict(bound_ms=bound_ms, bound_by=bound_by, route=work.route,
+               route_peak_tflops=work.peak / 1e12)
+    if work.route_flops is not None:
+        rec["route_bound_ms"] = measure.bound(work.route_flops, work.bytes, work.peak)[0]
+    if work.n_exp is not None:
+        rec.update(exp_floor_ms=measure.exp_floor_ms(work.n_exp, sm_mhz, n_sms),
+                   n_exp=work.n_exp, sm_mhz=sm_mhz, n_sms=n_sms)
+    return rec
 
 
 def _randn(gen, shape, dtype, device) -> torch.Tensor:
@@ -331,6 +378,30 @@ def matmul_case(m: int, k: int, dtype: torch.dtype, device="cuda") -> Case:
     return Case((a, b), matmul, matmul_reference, torch.matmul, matmul_work(m, k, dtype))
 
 
+def fullk_work(b: int, h: int, l: int, d: int, do_max: DoMax) -> Work:
+    """fullk on bf16 ``wgmma``: the function's two products (q k^T, p v) in
+    every mode, and the L^2 exponentials of every mode but the matmul
+    floor. With the max the route streams the keys twice, S alone then S
+    and p v: three products, in ``route_flops`` (the design's cost, not the
+    function's, so outside ``bound_ms``)."""
+    route = {True: "bf16 wgmma, two passes (S; S, P V)", False: "bf16 wgmma, one pass",
+             "none": "bf16 wgmma, one pass, no softmax"}[do_max]
+    w = attn_work(b, h, l, d, d, measure.PEAK_BF16_FLOPS, 2,
+                  0.0 if do_max == "none" else float(b * h * l * l), route)
+    return w._replace(route_flops=1.5 * w.flops) if do_max is True else w
+
+
+def flash_work(b: int, h: int, l: int, d: int, dp: int, dot_dtype: torch.dtype) -> Work:
+    """flash's route, both on bf16 ``wgmma``: two products in bf16 dots; in
+    f32 dots S and P V on the hi and lo halves of p (three products)."""
+    if dot_dtype == torch.float32:
+        products, route = 3, "bf16 wgmma, P V on hi + lo of p"
+    else:
+        products, route = 2, "bf16 wgmma (the production forward)"
+    return attn_work(b, h, l, d, dp, measure.PEAK_BF16_FLOPS, products,
+                     float(b * h * l * l), route)
+
+
 def fullk_case(b: int, h: int, l: int, d: int, do_max: DoMax = True, device="cuda") -> Case:
     scale = 1.0 / math.sqrt(d)
     # SDPA computes the softmax with the max or without it (the same function
@@ -340,21 +411,29 @@ def fullk_case(b: int, h: int, l: int, d: int, do_max: DoMax = True, device="cud
     return Case(_qkv(b, h, l, d, d, device),
                 lambda q, k, v: fullk(q, k, v, scale, do_max=do_max),
                 lambda q, k, v: fullk_reference(q, k, v, scale, do_max),
-                library, attn_work(b, h, l, d, d, measure.PEAK_BF16_FLOPS))
+                library, fullk_work(b, h, l, d, do_max))
 
 
 def flash_case(b: int, h: int, l: int, d: int, dot_dtype: torch.dtype,
                pad_to: Optional[int] = None, device="cuda") -> Case:
     """q, k, v zero-padded along D to ``pad_to`` where it exceeds d, as the
-    TPU tool pads them; the scale stays 1/sqrt(d) of the unpadded d."""
+    TPU tool pads them; the scale stays 1/sqrt(d) of the unpadded d. SDPA
+    on the bf16 inputs rounds p to bf16 (the bf16-dot function); for f32
+    dots SDPA on f32 copies (``library_f32``) computes the same function."""
     dp = pad_to if pad_to and pad_to > d else d
     scale = 1.0 / math.sqrt(d)
-    peak = measure.PEAK_BF16_FLOPS if dot_dtype == torch.bfloat16 else measure.PEAK_TF32_FLOPS
-    return Case(_qkv(b, h, l, d, dp, device),
+    qkv = _qkv(b, h, l, d, dp, device)
+    library_f32 = rel_limit = None
+    if dot_dtype == torch.float32:
+        q32, k32, v32 = (t.float() for t in qkv)
+        library_f32 = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q32, k32, v32, scale=scale)
+        rel_limit = F32_FLASH_REL_LIMIT
+    return Case(qkv,
                 lambda q, k, v: flash(q, k, v, scale, dot_dtype=dot_dtype),
                 lambda q, k, v: flash_reference(q, k, v, scale, dot_dtype),
                 lambda q, k, v: F.scaled_dot_product_attention(q, k, v, scale=scale),
-                attn_work(b, h, l, d, dp, peak))
+                flash_work(b, h, l, d, dp, dot_dtype), library_f32, rel_limit)
 
 
 def exp_case(l: int, device="cuda") -> Case:
@@ -369,17 +448,6 @@ CASES: Dict[str, Callable[..., Case]] = {
 
 # ------------------------------------------------------------------ probes
 
-@contextlib.contextmanager
-def _no_tf32():
-    """Full f32 for the f32 cuBLAS yardstick, as the f32 kernel computes."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 def _require_cuda(device) -> None:
     if torch.device(device).type != "cuda":
         raise ValueError(f"the probes time a CUDA device, got {device!r}")
@@ -388,31 +456,55 @@ def _require_cuda(device) -> None:
 Check = Callable[[Case, torch.Tensor], dict]
 
 
+def plain_by_rows(plain, *inputs, rows: int = 2) -> torch.Tensor:
+    """An attention probe's plain version over ``rows`` batch rows at a
+    time (its f32 score matrix at b = 16, L = 5120 would take 13.4 GB); the
+    matmul and exp plain versions in one call."""
+    if inputs[0].dim() != 4:
+        return plain(*inputs)
+    return torch.cat([plain(*(t[i:i + rows] for t in inputs))
+                      for i in range(0, inputs[0].shape[0], rows)])
+
+
 def measure_case(case: Case, check: Optional[Check] = None) -> dict:
-    """Device times of the kernel and the library call, the bound, and the
-    share of the bound; a time under the HBM bound can only come from the
-    50 MB L2 (the graph replays read the same inputs), and is labelled
-    ``l2_resident`` with no share. With ``check``, the kernel's output of
-    one call goes to ``check(case, out)`` first, and what it returns joins
-    the result."""
+    """Device times of the kernel and the library calls, the route's bound
+    and exp floor (:func:`bounds`, at the SM clock read after the kernel's
+    timing), and the share of the bound; a time under the HBM bound can
+    only come from the 50 MB L2 (the graph replays read the same inputs),
+    and is labelled ``l2_resident`` with no share. With ``check``, the
+    kernel's output of one call goes to ``check(case, out)`` first, and
+    what it returns joins the result."""
     checked = {} if check is None else check(case, case.kernel(*case.inputs))
     ms = measure.time_ms(lambda: case.kernel(*case.inputs))
-    with _no_tf32():
-        lib_ms = None if case.library is None else measure.time_ms(
-            lambda: case.library(*case.inputs))
     w = case.work
-    bound_ms, bound_by = measure.bound(w.flops, w.bytes, w.peak)
-    under = ms < bound_ms
-    return dict(ms=ms, useful_tflops=w.useful_flops / ms / 1e9, bound_ms=bound_ms,
-                bound_by=bound_by, share_of_bound=None if under else bound_ms / ms,
-                l2_resident=under, library_ms=lib_ms, **checked)
+    clock = (None, None) if w.n_exp is None else (measure.sm_clock_mhz(), measure.sm_count())
+    rec = bounds(w, *clock)
+    with measure.no_tf32():  # full f32 yardsticks, as the f32 kernels compute
+        rec["library_ms"] = None if case.library is None else measure.time_ms(
+            lambda: case.library(*case.inputs))
+        if case.library_f32 is not None:
+            rec["library_f32_ms"] = measure.time_ms(case.library_f32)
+            rec["library_f32_backend"] = measure.sdpa_backend(case.library_f32)
+    under = ms < rec["bound_ms"]
+    return dict(ms=ms, useful_tflops=w.useful_flops / ms / 1e9, **rec,
+                share_of_bound=None if under else rec["bound_ms"] / ms,
+                l2_resident=under, **checked)
 
 
 def _tail(r: dict, library: str) -> str:
     share = ("under the HBM bound: L2-resident" if r["l2_resident"]
              else f"{100 * r['share_of_bound']:.1f}% of it")
-    lib = "" if r["library_ms"] is None else f"  {library} {r['library_ms']:.4f} ms"
-    return f"  bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {share}){lib}"
+    tail = f"  bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {r['route']}, {share})"
+    if "route_bound_ms" in r:
+        tail += f"  route's products {r['route_bound_ms']:.4f} ms"
+    if "exp_floor_ms" in r:
+        tail += f"  exp floor {r['exp_floor_ms']:.4f} ms"
+    if r["library_ms"] is not None:
+        tail += f"  {library} {r['library_ms']:.4f} ms"
+    if "library_f32_ms" in r:
+        tail += (f"  {library} f32 {r['library_f32_ms']:.4f} ms "
+                 f"({r['library_f32_backend']['backend']})")
+    return tail
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -446,7 +538,7 @@ def fullk_probe(b: int, h: int, l: int, d: int, bq: int, do_max: DoMax = True,
 def flash_probe(b: int, h: int, l: int, d: int, dot_dtype: torch.dtype,
                 pad_to: Optional[int] = None, label: str = "", device="cuda",
                 check: Optional[Check] = None) -> dict:
-    """Online-softmax attention with f32 (TF32) or bf16 dots, at native D or
+    """Online-softmax attention with f32 or bf16 dots, at native D or
     zero-padded to ``pad_to``."""
     _require_cuda(device)
     dp = pad_to if pad_to and pad_to > d else d

@@ -2,7 +2,7 @@
 in turns, on one NVIDIA GPU.
 
     python -m mvldm_tpu_torch.tools.kernel_compare --other DIR
-        [--kernel bwd|fwd|gemm] [--rounds N] [--only TEXT]
+        [--kernel bwd|fwd|gemm|micro] [--rounds N] [--only TEXT]
 
 DIR is another checkout of this repository, for example the parent commit
 unpacked with ``git archive`` into an ignored directory such as
@@ -27,7 +27,11 @@ replay). One JSON line per shape and launch, then the card as
   ``fused_ln_geglu_ff.cu`` and ``micro_matmul.cu`` (the GEMM tile of
   ``gemm_tile.cuh``) at the shapes of the fused blocks
   (:data:`ATTN_BLOCK_SHAPES`, :data:`FF_BLOCK_SHAPES`) and of the matmul
-  probe (:data:`MATMUL_SHAPES`), the cuBLAS product beside it.
+  probe (:data:`MATMUL_SHAPES`), the cuBLAS product beside it;
+* ``micro``: the microbenchmark's attention probes (``micro_attn.cu``),
+  the f32-dot flash and fullk in its modes, at every such case of the TPU
+  tool's sections (:data:`MICRO_CASES`), SDPA (for the f32-dot flash also
+  SDPA on f32 copies), the route's bound and the exp floor beside them.
 """
 
 from __future__ import annotations
@@ -93,11 +97,27 @@ ATTN_BLOCK_SHAPES = [
 FF_BLOCK_SHAPES = [("FF 32x32 (C=320)", 10, 1024, 320), ("FF 16x16 (C=640)", 10, 256, 640)]
 MATMUL_SHAPES = [(4096, 1024), (8192, 512)]
 
+# (label, probe, case kwargs): every f32-dot flash and fullk case of the TPU
+# tool's flash, fullk and floor sections, once each.
+_F32 = torch.float32
+MICRO_CASES = [
+    ("flash f32 16x8x5120x40", "flash", dict(b=16, h=8, l=5120, d=40, dot_dtype=_F32)),
+    ("flash f32 16x8x1280x80", "flash", dict(b=16, h=8, l=1280, d=80, dot_dtype=_F32)),
+    ("flash f32 16x8x320x160", "flash", dict(b=16, h=8, l=320, d=160, dot_dtype=_F32)),
+    ("flash f32 80x8x1024x40", "flash", dict(b=80, h=8, l=1024, d=40, dot_dtype=_F32)),
+    ("fullk max 16x8x5120x40", "fullk", dict(b=16, h=8, l=5120, d=40, do_max=True)),
+    ("fullk nomax 16x8x5120x40", "fullk", dict(b=16, h=8, l=5120, d=40, do_max=False)),
+    ("fullk none 16x8x5120x40", "fullk", dict(b=16, h=8, l=5120, d=40, do_max="none")),
+    ("fullk max 16x8x1280x80", "fullk", dict(b=16, h=8, l=1280, d=80, do_max=True)),
+    ("fullk max 80x8x1024x40", "fullk", dict(b=80, h=8, l=1024, d=40, do_max=True)),
+]
+
 SOURCES = {"bwd": ("flash_attn_bwd",), "fwd": ("flash_attn_fwd",),
-           "gemm": ("fused_ln_attn", "fused_ln_geglu_ff", "micro_matmul")}
+           "gemm": ("fused_ln_attn", "fused_ln_geglu_ff", "micro_matmul"),
+           "micro": ("micro_attn",)}
 SIGNATURES = {"flash_attn_bwd": attn._BWD_SIGNATURES, "flash_attn_fwd": attn._FWD_SIGNATURES,
               "fused_ln_attn": fused_attn._SIGNATURES, "fused_ln_geglu_ff": fused_ff._SIGNATURES,
-              "micro_matmul": micro._MATMUL_SIG}
+              "micro_matmul": micro._MATMUL_SIG, "micro_attn": micro._ATTN_SIG}
 
 
 def attn_inputs(gen, b, h, l, d, with_bias):
@@ -445,6 +465,51 @@ def compare_gemm(libs, args, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- micro
+
+def micro_kernel(lib, probe: str, kw: dict) -> Callable[..., torch.Tensor]:
+    """The probe kernel of ``lib`` (a build of ``csrc/micro_attn.cu``) for a
+    :data:`MICRO_CASES` case, taking (q, k, v)."""
+    scale = 1.0 / kw["d"] ** 0.5
+    if probe == "flash":
+        return lambda q, k, v: micro._launch_attn("mvldm_micro_flash_tf32", q, k, v, scale,
+                                                  lib=lib)
+    mode = micro.FULLK_MODES[kw["do_max"]]
+    return lambda q, k, v: micro._launch_attn("mvldm_micro_fullk", q, k, v, scale, mode, lib=lib)
+
+
+def compare_micro(libs, args, card: str) -> None:
+    libs = {name: ls["micro_attn"] for name, ls in libs.items()}
+    n_sms = measure.sm_count()
+    for label, probe, kw in MICRO_CASES:
+        if args.only and not any(text in label for text in args.only):
+            continue
+        case = micro.CASES[probe](**kw)
+        kernels = {name: micro_kernel(lib, probe, kw) for name, lib in libs.items()}
+        ref = micro.plain_by_rows(case.plain, *(t.float() for t in case.inputs))
+        errs = {name: measure.error_record(fn(*case.inputs), ref)["err_over_rms"]
+                for name, fn in kernels.items()}
+        del ref
+        times = in_turns({name: (lambda fn=fn: fn(*case.inputs)) for name, fn in kernels.items()},
+                         args.rounds, None)
+        rec = dict(kernel="micro", case=label, probe=probe,
+                   **{k: str(v) if isinstance(v, torch.dtype) else v for k, v in kw.items()},
+                   **micro.bounds(case.work, measure.sm_clock_mhz(), n_sms))
+        with measure.no_tf32():
+            rec["sdpa_ms"] = None if case.library is None else measure.time_ms(
+                lambda: case.library(*case.inputs))
+            if case.library_f32 is not None:
+                rec["sdpa_f32_ms"] = measure.time_ms(case.library_f32)
+                rec["sdpa_f32_backend"] = measure.sdpa_backend(case.library_f32)
+        rec["card"] = card
+        for name, ts in times.items():
+            rec[name] = dict(ms=_mean(ts), err_over_rms=errs[name], turns=ts)
+        rec["this_over_other"] = rec["this"]["ms"] / rec["other"]["ms"]
+        print(json.dumps(rec), flush=True)
+        del case, kernels
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, type=Path, help="another checkout's root")
@@ -460,7 +525,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = measure.card_line()
     libs = load_libs(args.kernel, args.other)
-    {"bwd": compare_bwd, "fwd": compare_fwd, "gemm": compare_gemm}[args.kernel](libs, args, card)
+    {"bwd": compare_bwd, "fwd": compare_fwd, "gemm": compare_gemm,
+     "micro": compare_micro}[args.kernel](libs, args, card)
     print(card, flush=True)
     return 0
 

@@ -9,17 +9,29 @@ the card's name and power limit (:func:`card_line`).
 
 from __future__ import annotations
 
+import contextlib
 import subprocess
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
 PEAK_BF16_FLOPS = 989e12  # bf16 tensor cores (mma / wgmma)
-PEAK_TF32_FLOPS = 495e12  # TF32 tensor cores
 PEAK_FP32_FLOPS = 67e12   # f32 FFMA outside the tensor cores
 PEAK_BYTES = 3.35e12      # HBM3
 EXP2_PER_CLOCK_PER_SM = 16  # MUFU ex2 (CUDA arithmetic-throughput table, sm_90)
 TARGET_MS = 50.0  # device time a replay of an unsized timing fills
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Full f32 in cuBLAS and cuDNN for the block (TF32 off for both), the
+    flags as they were after it."""
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
 
 
 def card_line() -> str:
@@ -135,6 +147,31 @@ def sdpa_bwd_ms(q, k, v, bias, g, iters: int) -> float:
 
     return (event_ms(lambda: torch.autograd.grad(fwd(), (qg, kg, vg), g), iters)
             - event_ms(fwd, iters))
+
+
+def device_kernels(fn: Callable[[], object]) -> List[str]:
+    """The names of the device kernels that one call of ``fn`` launches
+    (torch.profiler, after one call outside it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def sdpa_backend(fn: Callable[[], object]) -> dict:
+    """The backend that a scaled_dot_product_attention call ``fn`` ran
+    (flash, efficient, cudnn, or math where none of those kernels ran),
+    named from its device kernels (:func:`device_kernels`)."""
+    names = device_kernels(fn)
+    low = " ".join(names).lower()
+    backend = next((b for key, b in (("flash", "flash"), ("cudnn", "cudnn"), ("fmha", "efficient"),
+                                     ("efficient", "efficient")) if key in low), "math")
+    return dict(backend=backend, kernels=[n[:100] for n in names])
 
 
 def nbytes(*tensors) -> int:

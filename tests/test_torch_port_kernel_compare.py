@@ -6,10 +6,11 @@ import pytest
 import torch
 
 from mvldm_tpu_torch.ops import fused_attn
+from mvldm_tpu_torch.tools import bench_attn_micro as micro
 from mvldm_tpu_torch.tools import kernel_compare
 
 
-@pytest.mark.parametrize("kernel", ["bwd", "fwd", "gemm"])
+@pytest.mark.parametrize("kernel", ["bwd", "fwd", "gemm", "micro"])
 def test_compare_tool_needs_a_card(capsys, kernel):
     """Every --kernel exits non-zero, with no result line, without a card."""
     assert kernel_compare.main(["--other", ".", "--kernel", kernel]) == 2
@@ -72,3 +73,24 @@ def test_in_turns_order(monkeypatch):
                                      "other": lambda: order.append("other")}, 2, None)
     assert order == ["this", "other", "other", "this"] * 2
     assert [len(t) for t in times.values()] == [4, 4]
+
+
+def test_micro_cases_are_the_tool_sections_f32_flash_and_fullk():
+    """The micro comparison runs every f32-dot flash case and every
+    distinct fullk case of the TPU tool's flash, fullk and floor sections
+    (the floor once, at the joint shape), each once, on micro_attn.cu."""
+    def norm(probe, kw):  # the case's keyword arguments with their defaults filled
+        kw = {k: v for k, v in kw.items() if v is not None}
+        return (probe, dict(kw, do_max=kw.get("do_max", True)) if probe == "fullk" else kw)
+
+    cases = [norm(probe, kw) for _, probe, kw in kernel_compare.MICRO_CASES]
+    assert len({label for label, _, _ in kernel_compare.MICRO_CASES}) == len(cases)
+    plan = [norm(probe, kw) for section in ("flash", "fullk", "floor")
+            for probe, kw, _ in micro.PLAN[section][1]]
+    flash_f32 = [c for c in plan if c[0] == "flash" and c[1]["dot_dtype"] == torch.float32]
+    fullk = [c for c in plan if c[0] == "fullk" and c[1]["do_max"] != "none"]
+    for c in flash_f32 + fullk:
+        assert c in cases
+    assert all(c in plan for c in cases)
+    assert ("fullk", dict(b=16, h=8, l=5120, d=40, do_max="none")) in cases
+    assert len(cases) == 9 and kernel_compare.SOURCES["micro"] == ("micro_attn",)

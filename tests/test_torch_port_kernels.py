@@ -16,7 +16,12 @@ held within 2e-2 absolute (the bf16-rounded P the forward normalises by
 moves it by at most ~2^-8). The microbenchmark's f32 kernels get f32
 checks: the f32 matmul within relative L2 1e-5 of the product in float64
 (f32 accumulation over k <= 1024), exp within 1e-6 relative of exp in
-float64 (``expf`` is within 2 ulp).
+float64 (``expf`` is within 2 ulp). The f32-dot flash is also held within
+``bench_attn_micro.F32_FLASH_REL_LIMIT`` (1e-3) of the rms, the precision
+its P V on both halves of p exists for (p in bf16 alone reads ~1e-2). The
+f32 route's kernels (``ops/f32_route.py``) are held within relative L2
+1e-5 of the plain versions in f32, and an f32 model through them within
+3e-4 of the CPU.
 """
 
 import math
@@ -38,8 +43,15 @@ from mvldm_tpu_torch.ops.fused_attn import (
     fused_ln_self_attention,
     fused_ln_self_attention_reference,
 )
+from mvldm_tpu_torch.ops.f32_route import (
+    flash_attention_bwd_f32,
+    flash_attention_f32,
+    fused_ln_geglu_ff_f32,
+    fused_ln_self_attention_f32,
+)
 from mvldm_tpu_torch.ops.fused_ff import fused_ln_geglu_ff, fused_ln_geglu_ff_reference
 from mvldm_tpu_torch.tools import bench_attn_micro as micro
+from mvldm_tpu_torch.tools.measure import error_record
 
 pytestmark = pytest.mark.cuda
 REL_LIMIT = 0.05
@@ -485,3 +497,316 @@ def test_wgmma_kernels_are_deterministic(cuda):
     args = _ff_inputs(gen, 2, 100, 320, 0.0, cuda)
     assert torch.equal(fused_ln_geglu_ff(*args), fused_ln_geglu_ff(*args))
     torch.cuda.synchronize()
+
+
+# --------------------------- the microbenchmark's attention probes on wgmma
+
+MICRO_EDGES = [
+    # (b, h, lq, lk): L = 1 and L = 16 (one ragged key tile, the second
+    # warpgroup of the block idle); ragged L = 1000; Lq != Lk both ways;
+    # more keys than the ring has stages
+    (1, 2, 1, 1),
+    (2, 3, 16, 16),
+    (1, 2, 1000, 1000),
+    (1, 2, 16, 300),
+    (2, 2, 300, 70),
+    (1, 70, 130, 600),
+]
+
+
+@pytest.mark.parametrize("b,h,lq,lk", MICRO_EDGES)
+@pytest.mark.parametrize("d", [40, 48, 72, 80, 128, 160])
+def test_micro_flash_f32_edges(cuda, b, h, lq, lk, d):
+    """The f32-dot flash body at every instance (D = 40 with the ones
+    column of V, 48, 80 with D = 72 inside it, 128, 160) against the plain
+    version with the unrounded p: within the 5 % check, and within
+    F32_FLASH_REL_LIMIT, the precision that P V on both halves of p is
+    for."""
+    q, k, v = (_randn(torch.Generator().manual_seed(d + lq + 3 * lk + i), b, h, n, d,
+                      device=cuda) for i, n in enumerate((lq, lk, lk)))
+    scale = 1.0 / math.sqrt(d)
+    out = micro.flash(q, k, v, scale)
+    torch.cuda.synchronize()
+    ref = micro.flash_reference(q.float(), k.float(), v.float(), scale)
+    assert_kernel_close(out, ref)
+    assert error_record(out, ref)["err_over_rms"] <= micro.F32_FLASH_REL_LIMIT
+
+
+@pytest.mark.parametrize("b,h,lq,lk", MICRO_EDGES)
+@pytest.mark.parametrize("d", [40, 48, 72, 80])
+@pytest.mark.parametrize("do_max", [True, False, "none"])
+def test_micro_fullk_edges(cuda, b, h, lq, lk, d, do_max):
+    """fullk in its three modes (two passes with the max) at every instance."""
+    q, k, v = (_randn(torch.Generator().manual_seed(d + lq + 3 * lk + i), b, h, n, d,
+                      device=cuda) for i, n in enumerate((lq, lk, lk)))
+    scale = 1.0 / math.sqrt(d)
+    out = micro.fullk(q, k, v, scale, do_max=do_max)
+    torch.cuda.synchronize()
+    assert_kernel_close(out, micro.fullk_reference(q.float(), k.float(), v.float(), scale,
+                                                   do_max))
+
+
+def test_micro_attention_is_deterministic(cuda):
+    """Both probe bodies agree bit for bit across calls: no atomics, a fixed
+    order of every sum."""
+    gen = torch.Generator().manual_seed(9)
+    for b, h, l, d in ((2, 66, 200, 40), (1, 2, 1000, 80), (1, 2, 300, 160)):
+        q, k, v = (_randn(gen, b, h, l, d, device=cuda) for _ in range(3))
+        assert torch.equal(micro.flash(q, k, v, 0.1), micro.flash(q, k, v, 0.1))
+        if d <= 80:
+            for m in (True, False, "none"):
+                assert torch.equal(micro.fullk(q, k, v, 0.1, do_max=m),
+                                   micro.fullk(q, k, v, 0.1, do_max=m))
+    torch.cuda.synchronize()
+
+
+# --------------------------------------- the f32 route's kernels on the card
+
+# The f32 kernels against the plain versions in f32 on the card (TF32 off):
+# the same f32 arithmetic summed in another order, ~1e-6 relative over sums
+# of a few hundred terms; a wrong term reads 1e-3 or more.
+F32_REL_L2 = 1e-5
+
+
+def _f32(gen, *shape, device, scale=1.0):
+    return (torch.randn(shape, generator=gen) * scale).to(device)
+
+
+def _assert_f32_close(got, want, rel=F32_REL_L2, scale=None):
+    """Relative L2 within ``rel``, against ``scale`` where the reference's
+    own norm is smaller (a gradient that vanishes: with one key the softmax
+    has none, and the kernel returns its rounding, ~1e-7 of the others)."""
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    den = torch.linalg.norm(want.double()).item()
+    if scale is not None:
+        den = max(den, scale)
+    err = torch.linalg.norm(got.double() - want.double()).item() / den
+    assert err <= rel, err
+
+
+def _f32_bias(gen, b, lk, device):
+    bias = torch.where(torch.rand((b, lk), generator=gen) < 0.3, -1e30, 0.0)
+    bias[:, 0] = 0.0
+    return bias.to(device)
+
+
+F32_ATTN_SHAPES = [
+    # (b, h, lq, lk, d, bias): L = 1; one ragged tile; Lq != Lk both ways;
+    # every head dim of the model (8 and 16: the tiny topology) and the VAE's 512
+    (1, 2, 1, 1, 8, False),
+    (2, 3, 16, 16, 16, True),
+    (1, 2, 100, 300, 40, True),
+    (2, 2, 300, 70, 64, False),
+    (1, 2, 77, 200, 80, True),
+    (1, 2, 64, 190, 160, True),
+    (1, 1, 130, 130, 512, False),
+]
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d,with_bias", F32_ATTN_SHAPES)
+def test_f32_flash_forward(cuda, b, h, lq, lk, d, with_bias):
+    gen = torch.Generator().manual_seed(d + lq + lk)
+    q, k, v = (_f32(gen, b, h, n, d, device=cuda) for n in (lq, lk, lk))
+    bias = _f32_bias(gen, b, lk, cuda) if with_bias else None
+    before = flash_attention_f32.launches
+    out, lse = flash_attention_f32(q, k, v, bias, return_lse=True)
+    torch.cuda.synchronize()
+    assert flash_attention_f32.launches == before + 1
+    ref, ref_lse = attention_reference_lse(q, k, v, bias)
+    _assert_f32_close(out, ref)
+    _assert_f32_close(lse, ref_lse)
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d,with_bias",
+                         [s for s in F32_ATTN_SHAPES if s[4] <= 160])
+def test_f32_flash_backward(cuda, b, h, lq, lk, d, with_bias):
+    gen = torch.Generator().manual_seed(d + 2 * lq + lk)
+    q, k, v = (_f32(gen, b, h, n, d, device=cuda) for n in (lq, lk, lk))
+    g = _f32(gen, b, h, lq, d, device=cuda)
+    bias = _f32_bias(gen, b, lk, cuda) if with_bias else None
+    out, lse = flash_attention_f32(q, k, v, bias, return_lse=True)
+    before = flash_attention_bwd_f32.launches
+    got = flash_attention_bwd_f32(q, k, v, bias, out, lse, g)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_f32.launches == before + 1
+    want = attention_bwd_reference(q, k, v, bias, g)
+    dv_norm = torch.linalg.norm(want[2].double()).item()
+    for name, x, y in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert (x is None) == (y is None), name
+        if y is not None:
+            _assert_f32_close(x, y, scale=dv_norm if name in ("dq", "dk") else None)
+
+
+def _f32_linear_t(gen, rows, cols, device):
+    """A (rows, cols) operand as the transpose of a contiguous Linear weight."""
+    return _f32(gen, cols, rows, device=device, scale=rows ** -0.5).t()
+
+
+@pytest.mark.parametrize("n,l,c,heads", [(2, 100, 64, 2), (1, 256, 320, 5), (3, 16, 32, 4)])
+def test_f32_fused_ln_self_attention(cuda, n, l, c, heads):
+    gen = torch.Generator().manual_seed(c + l)
+    x = _f32(gen, n, l, c, device=cuda)
+    hd = c
+    ws = [_f32_linear_t(gen, c, hd, cuda) for _ in range(3)] + [_f32_linear_t(gen, hd, c, cuda)]
+    g, b, bo = (_f32(gen, c, device=cuda, scale=0.1) + (1.0 if i == 0 else 0.0)
+                for i in range(3))
+    before = fused_ln_self_attention_f32.launches
+    out = fused_ln_self_attention_f32(x, g, b, *ws, bo, heads, hd // heads)
+    torch.cuda.synchronize()
+    assert fused_ln_self_attention_f32.launches == before + 1
+    want = fused_ln_self_attention_reference(x, g, b, *ws, bo, heads, hd // heads)
+    _assert_f32_close(out - x, want - x)
+
+
+@pytest.mark.parametrize("m,c", [(100, 64), (1024, 320), (16, 32)])
+def test_f32_fused_ln_geglu_ff(cuda, m, c):
+    gen = torch.Generator().manual_seed(m + c)
+    x = _f32(gen, 2, m, c, device=cuda)
+    w1, w2 = _f32_linear_t(gen, c, 8 * c, cuda), _f32_linear_t(gen, 4 * c, c, cuda)
+    g, b = _f32(gen, c, device=cuda, scale=0.1) + 1.0, _f32(gen, c, device=cuda, scale=0.1)
+    b1, b2 = _f32(gen, 8 * c, device=cuda, scale=0.1), _f32(gen, c, device=cuda, scale=0.1)
+    before = fused_ln_geglu_ff_f32.launches
+    out = fused_ln_geglu_ff_f32(x, g, b, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert fused_ln_geglu_ff_f32.launches == before + 1
+    _assert_f32_close(out - x, fused_ln_geglu_ff_reference(x, g, b, w1, b1, w2, b2) - x)
+
+
+def test_f32_kernels_are_deterministic(cuda):
+    """No atomics, a fixed order of every sum: bit for bit across calls."""
+    gen = torch.Generator().manual_seed(11)
+    q, k, v, g = (_f32(gen, 2, 3, 150, 40, device=cuda) for _ in range(4))
+    bias = _f32_bias(gen, 2, 150, cuda)
+    out, lse = flash_attention_f32(q, k, v, bias, return_lse=True)
+    again = flash_attention_f32(q, k, v, bias, return_lse=True)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    one = flash_attention_bwd_f32(q, k, v, bias, out, lse, g)
+    two = flash_attention_bwd_f32(q, k, v, bias, out, lse, g)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    torch.cuda.synchronize()
+
+
+# ------------------------------------------- an f32 model through the route
+
+
+def _tiny_f32_engine(device):
+    """The tiny topology of ``tests/test_torch_goldens.py`` (2 stages of 32
+    and 64 channels, 4 heads, a 4-level VAE of 16-32 channels) with
+    ``builder.init_weights``'s seeded weights, in f32 on ``device``."""
+    from mvldm_tpu_torch.builder import MVLDM, init_weights
+    from mvldm_tpu_torch.diffusion.engine import DiffusionEngine, ModelCfg
+    from mvldm_tpu_torch.diffusion.schedulers import DDIMScheduler, DDIMSchedulerKwargs
+    from mvldm_tpu_torch.models.mv_attention import SpatialTransformer3DCfg
+    from mvldm_tpu_torch.models.unet import MultiViewUNetCfg, UNetBackboneCfg
+    from mvldm_tpu_torch.models.vae import AutoencoderCfg, AutoencoderKLCfg
+
+    cfg = ModelCfg(
+        denoiser=MultiViewUNetCfg(
+            autoencoder=UNetBackboneCfg(
+                down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+                up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"),
+                block_out_channels=(32, 64), layers_per_block=1, cross_attention_dim=24,
+                num_attention_heads=(4, 4), norm_num_groups=8),
+            multi_view_attention=SpatialTransformer3DCfg(num_heads=4)),
+        autoencoder=AutoencoderCfg(kwargs=AutoencoderKLCfg(
+            block_out_channels=(16, 32, 32, 32), layers_per_block=1, norm_num_groups=8)),
+        use_cfg=True, cfg_scale=3.0, use_ray_encoding=False)
+    model = MVLDM(cfg)
+    init_weights(model, 0)
+    model = model.to(device=device, dtype=torch.float32)
+    scheduler = DDIMScheduler.create(
+        DDIMSchedulerKwargs(clip_sample=False, prediction_type="epsilon"), num_inference_steps=4)
+    return DiffusionEngine(cfg, model.denoiser, model.autoencoder, scheduler)
+
+
+@pytest.fixture
+def full_f32(cuda):
+    """TF32 off in cuBLAS and cuDNN for the test, restored after it."""
+    from mvldm_tpu_torch.tools.measure import no_tf32
+
+    with no_tf32():
+        yield cuda
+
+
+def _rel_l2(got, want) -> float:
+    return (torch.linalg.norm(got.cpu() - want) / torch.linalg.norm(want)).item()
+
+
+def _route_counts():
+    """The f32 route's counts (forward, backward, fused blocks), then the
+    bf16 kernels'."""
+    return (flash_attention_f32.launches, flash_attention_bwd_f32.launches,
+            fused_ln_self_attention_f32.launches, fused_ln_geglu_ff_f32.launches,
+            flash_attention.launches, flash_attention_bwd_dq.launches,
+            fused_ln_self_attention.launches, fused_ln_geglu_ff.launches)
+
+
+def test_f32_unet_forward_on_the_card(full_f32):
+    """An f32 model runs on the card through the f32 route's kernels (no bf16
+    kernel launches) and matches the CPU within 3e-4 relative L2, the CPU
+    parity tests' tolerance: the same f32 arithmetic summed in another
+    order."""
+    cpu, gpu = _tiny_f32_engine("cpu"), _tiny_f32_engine(full_f32)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 5, 16, 16, 11), generator=gen)
+    t = torch.tensor([[0, 500, 500, 500, 500]] * 2)
+    mask = torch.tensor([[True] * 5, [False] + [True] * 4])
+    before = _route_counts()
+    with torch.inference_mode():
+        got = gpu.unet(x.to(full_f32), t.to(full_f32), view_mask=mask.to(full_f32))
+        torch.cuda.synchronize()
+        want = cpu.unet(x, t, view_mask=mask)
+    after = _route_counts()
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert [after[i] > before[i] for i in range(4)] == [True, False, True, True], (before,
+                                                                                  after)
+    assert after[4:] == before[4:]
+    assert _rel_l2(got, want) <= 3e-4
+
+
+def test_f32_training_step_on_the_card(full_f32):
+    """One f32 training step (loss, backward, SGD update of the f32
+    masters) on the card, through the f32 route's forward, backward and
+    fused-block kernels, against the CPU with the same injected draws: loss
+    and update within 1e-3 relative (the same f32 arithmetic in another
+    order through forward and backward; a wrong term reads O(1e-2))."""
+    from mvldm_tpu_torch.diffusion.engine import Batch, TrainDraws
+    from mvldm_tpu_torch.training import (
+        OptimizerCfg,
+        build_lr_schedule,
+        build_optimizer,
+        make_train_step,
+    )
+    from mvldm_tpu_torch.training.trainer import TrainState, master_params
+
+    rng = torch.Generator().manual_seed(2)
+    b, v = 1, 5
+    extr = torch.eye(4).repeat(b, v, 1, 1)
+    extr[:, :, 0, 3] = torch.linspace(0, 1, v)
+    intr = torch.eye(3).repeat(b, v, 1, 1)
+    intr[:, :, 0, 2] = intr[:, :, 1, 2] = 0.5
+    batch = Batch(images=torch.rand((b, v, 64, 64, 3), generator=rng), extrinsics=extr,
+                  intrinsics=intr, is_target=torch.tensor([[False, False, True, True, True]]))
+    draws = TrainDraws.draw(b, v, 2, (8, 8, 4), 1000, torch.Generator().manual_seed(3))
+    results = []
+    for device in ("cpu", full_f32):
+        engine = _tiny_f32_engine(device)
+        engine.vae.requires_grad_(False)
+        tx = build_optimizer(OptimizerCfg("SGD", 1.0, {}),
+                             build_lr_schedule(1.0, None))
+        params = master_params(engine.unet)
+        before = {n: p.clone() for n, p in params.items()}
+        state = TrainState(params=params, opt_state=tx.init(params), ema_params=None, step=0)
+        counts = _route_counts()
+        state, metrics = make_train_step(engine, tx, num_context_views=2)(state, batch, draws)
+        if device != "cpu":
+            torch.cuda.synchronize()
+            after = _route_counts()
+            assert all(a > c for a, c in zip(after[:4], counts[:4])), (counts, after)
+            assert after[4:] == counts[4:]
+        update = torch.cat([(state.params[n] - before[n]).flatten().cpu() for n in before])
+        results.append((float(metrics["loss/diffusion"]), update))
+    (cpu_loss, cpu_update), (gpu_loss, gpu_update) = results
+    assert torch.isfinite(gpu_update).all() and cpu_update.abs().max() > 0
+    assert abs(gpu_loss - cpu_loss) <= 1e-3 * abs(cpu_loss)
+    assert _rel_l2(gpu_update, cpu_update) <= 1e-3

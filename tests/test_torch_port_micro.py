@@ -222,14 +222,16 @@ def test_probes_refuse_a_cpu_device(probe, kwargs):
 
 
 # (case, kwargs, bound ms, bound_by): the bounds at the tool's shapes, from
-# 989 TFLOP/s bf16, 495 TF32, 67 FP32 and 3.35 TB/s.
+# 989 TFLOP/s bf16 (three products for the f32-dot flash, P V on both
+# halves of p; the function's two otherwise, fullk with the max too), 67
+# FP32 and 3.35 TB/s.
 BOUNDS = [
     ("matmul", dict(m=4096, k=1024, dtype=torch.bfloat16), 8.684e-3, "operations"),
     ("matmul", dict(m=8192, k=512, dtype=torch.bfloat16), 5.164e-3, "bytes"),
     ("matmul", dict(m=4096, k=1024, dtype=torch.float32), 0.1282, "operations"),
     ("matmul", dict(m=8192, k=512, dtype=torch.float32), 0.06411, "operations"),
     ("flash", dict(b=16, h=8, l=5120, d=40, dot_dtype=torch.bfloat16), 0.5428, "operations"),
-    ("flash", dict(b=16, h=8, l=5120, d=40, dot_dtype=torch.float32), 1.0845, "operations"),
+    ("flash", dict(b=16, h=8, l=5120, d=40, dot_dtype=torch.float32), 0.8142, "operations"),
     ("flash", dict(b=16, h=8, l=5120, d=40, dot_dtype=torch.bfloat16, pad_to=128), 1.7371,
      "operations"),
     ("flash", dict(b=16, h=8, l=1280, d=80, dot_dtype=torch.bfloat16), 0.06785, "operations"),
@@ -249,12 +251,14 @@ def test_bounds_at_the_tool_shapes(name, kwargs, bound_ms, bound_by):
         w = micro.matmul_work(**kwargs)
     elif name == "exp":
         w = micro.exp_work(**kwargs)
-    else:
+    elif name == "flash":
         d = kwargs["d"]
         dp = max(d, kwargs.get("pad_to") or d)
-        peak = (measure.PEAK_TF32_FLOPS if kwargs.get("dot_dtype") == torch.float32
-                else measure.PEAK_BF16_FLOPS)
-        w = micro.attn_work(kwargs["b"], kwargs["h"], kwargs["l"], d, dp, peak)
+        w = micro.flash_work(kwargs["b"], kwargs["h"], kwargs["l"], d, dp, kwargs["dot_dtype"])
+        assert w.peak == measure.PEAK_BF16_FLOPS
+    else:
+        w = micro.fullk_work(kwargs["b"], kwargs["h"], kwargs["l"], kwargs["d"],
+                             kwargs.get("do_max", True))
     got_ms, got_by = measure.bound(w.flops, w.bytes, w.peak)
     assert got_by == bound_by
     assert got_ms == pytest.approx(bound_ms, rel=1e-3)
@@ -323,3 +327,92 @@ def test_plan_runs_the_tool_sections():
         for probe, case_kw, _ in calls:
             assert probe in micro.CASES and probe in micro.PROBES
             assert set(case_kw) <= set(micro.CASES[probe].__code__.co_varnames)
+
+
+# (work, bound ms, route's bound ms, n_exp) at the tool's (16, 8, 5120, 40),
+# at 989 TFLOP/s: the f32-dot flash needs three bf16 products (S, and P V on
+# the hi and lo halves of p); fullk needs the function's two in every mode,
+# and with the max its route runs a third (two passes: S; S and P V),
+# reported apart; the exponentials of every softmax mode.
+ROUTE_BOUNDS = [
+    (lambda: micro.flash_work(16, 8, 5120, 40, 40, torch.float32), 0.8142, None,
+     16 * 8 * 5120 ** 2),
+    (lambda: micro.flash_work(16, 8, 5120, 40, 40, torch.bfloat16), 0.5428, None,
+     16 * 8 * 5120 ** 2),
+    (lambda: micro.fullk_work(16, 8, 5120, 40, True), 0.5428, 0.8142, 16 * 8 * 5120 ** 2),
+    (lambda: micro.fullk_work(16, 8, 5120, 40, False), 0.5428, None, 16 * 8 * 5120 ** 2),
+    (lambda: micro.fullk_work(16, 8, 5120, 40, "none"), 0.5428, None, 0),
+]
+
+
+@pytest.mark.parametrize("work,bound_ms,route_bound_ms,n_exp", ROUTE_BOUNDS)
+def test_route_bounds_at_the_tool_shape(work, bound_ms, route_bound_ms, n_exp):
+    from mvldm_tpu_torch.tools import measure
+
+    w = work()
+    rec = micro.bounds(w, 1980.0, 132)
+    assert rec["bound_by"] == "operations" and w.peak == measure.PEAK_BF16_FLOPS
+    assert rec["bound_ms"] == pytest.approx(bound_ms, rel=1e-3)
+    if route_bound_ms is None:
+        assert "route_bound_ms" not in rec
+    else:
+        assert rec["route_bound_ms"] == pytest.approx(route_bound_ms, rel=1e-3)
+    assert w.useful_flops == 4.0 * 16 * 8 * 5120 ** 2 * 40
+    assert rec["n_exp"] == n_exp
+    # 16 exp2 a clock on each of 132 SMs at 1980 MHz: 0.8025 ms for 3.36e9.
+    assert rec["exp_floor_ms"] == pytest.approx(n_exp / (16 * 132 * 1980e6) * 1e3)
+
+
+def test_micro_records_carry_the_route_bound_and_exp_floor():
+    """At one small shape: the f32-dot flash case's bound is its route's
+    (three bf16 products) and its exp floor counts b h L^2 exp2; fullk with
+    the max is held to the function's two products, with its route's three
+    beside them; fullk's matmul floor needs no exp; the matmul and exp
+    probes have no exp floor."""
+    case = micro.flash_case(1, 2, 48, 40, torch.float32, device="cpu")
+    rec = micro.bounds(case.work, 1500.0, 100)
+    flops, moved = 6.0 * 2 * 48 * 48 * 40, 8 * 2 * 48 * 40
+    assert case.work.flops == flops and case.work.bytes == moved
+    assert rec["bound_ms"] == pytest.approx(max(flops / 989e12, moved / 3.35e12) * 1e3)
+    assert "hi + lo" in rec["route"]
+    assert rec["exp_floor_ms"] == pytest.approx(2 * 48 * 48 / (16 * 100 * 1500e6) * 1e3)
+    two = micro.bounds(micro.fullk_case(1, 2, 48, 40, True, device="cpu").work, 1500.0, 100)
+    assert two["bound_ms"] == pytest.approx(max(flops / 1.5 / 989e12, moved / 3.35e12) * 1e3)
+    assert two["route_bound_ms"] == pytest.approx(rec["bound_ms"])
+    assert "route_bound_ms" not in rec
+    none = micro.bounds(micro.fullk_case(1, 2, 48, 40, "none", device="cpu").work, 1500.0, 100)
+    assert none["exp_floor_ms"] == 0.0
+    for work in (micro.matmul_work(64, 64, torch.bfloat16), micro.exp_work(64)):
+        assert "exp_floor_ms" not in micro.bounds(work)
+
+
+def test_f32_library_is_the_f32_dot_function():
+    """The f32-dot flash's second yardstick, SDPA on f32 copies made with the
+    case, computes its plain version's function (within one bf16 step of
+    the plain version's bf16 output); the bf16-dot case has none."""
+    case = micro.flash_case(1, 2, 96, 40, torch.float32, device="cpu")
+    want = case.plain(*(t.float() for t in case.inputs))
+    got = case.library_f32()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert (got - want).abs().max().item() <= 2 ** -7 * want.abs().max().item()
+    assert micro.flash_case(1, 2, 96, 40, torch.bfloat16, device="cpu").library_f32 is None
+
+
+@pytest.mark.parametrize("l", [96, 320])
+def test_f32_flash_limit_tells_split_p_from_bf16_p(l):
+    """The f32-dot flash case carries F32_FLASH_REL_LIMIT (the bf16-dot case
+    none), and the limit tells the precision apart: the plain version's
+    exact output rounded to bf16 is within it, the plain version with p
+    rounded to bf16 (what a body without the lo half of p would compute)
+    is past it."""
+    from mvldm_tpu_torch.tools.measure import error_record
+
+    case = micro.flash_case(1, 2, l, 40, torch.float32, device="cpu")
+    assert case.rel_limit == micro.F32_FLASH_REL_LIMIT == 1e-3
+    assert micro.flash_case(1, 2, l, 40, torch.bfloat16, device="cpu").rel_limit is None
+    q, k, v = (t.float() for t in case.inputs)
+    scale = 1.0 / math.sqrt(40)
+    want = micro.flash_reference(q, k, v, scale, torch.float32)
+    bf16_p = micro.flash_reference(q, k, v, scale, torch.bfloat16)
+    assert error_record(want.to(torch.bfloat16), want)["err_over_rms"] <= case.rel_limit
+    assert error_record(bf16_p.to(torch.bfloat16), want)["err_over_rms"] > 4 * case.rel_limit
