@@ -6,7 +6,9 @@ Phases, each fatal on failure (non-zero exit, no final result line):
 
 1. device and build: the card's name and power limit; the CUDA kernels are
    compiled from mvldm_tpu_torch/csrc with nvcc (one process per source,
-   all started together).
+   all started together), with ptxas's registers and spills for every
+   kernel; the f32 route's backward instances must show HGMMA on TF32
+   operands, and no HMMA, in the library's SASS (cuobjdump).
 2. one phase per kernel of sampling and training at the main paths'
    shapes: the kernel against its plain PyTorch version computed in f32 on
    the same bf16 inputs (see ``check``), device times of both (CUDA graph
@@ -51,8 +53,10 @@ Phases, each fatal on failure (non-zero exit, no final result line):
 7. the f32 route (mvldm_tpu_torch.ops.f32_route, csrc/f32_route.cu): each
    of its four wrappers at the f32 UNet's shapes against its plain version
    in f32 (relative L2 within F32_KERNEL_REL_L2), with device times, the
-   bound at FP32 FFMA 67 TFLOP/s and SDPA in f32 (its backward for the
-   backward); then the seeded flagship built in f32 on the card runs the
+   bound at FP32 FFMA 67 TFLOP/s and SDPA in f32; the backward (split TF32
+   on wgmma) at the joint 32x32, 16x16 and 8x8 shapes, with SDPA's f32
+   backward and its backend, the bound at three TF32 products for each f32
+   one (494.7 TFLOP/s) and the FFMA bound beside it; then the seeded flagship built in f32 on the card runs the
    UNet parity forward against the host's f32 output (F32_REL_L2_BOUND):
    every f32 forward kernel must launch and no bf16 kernel may.
 8. train-step parity: loss and UNet gradient of one training step at batch
@@ -359,8 +363,9 @@ def flash_bwd_phase(card: str, gen) -> dict:
 def _f32_check(got, want, what: str) -> dict:
     """An f32 route kernel against its plain version in f32: relative L2
     within F32_KERNEL_REL_L2."""
-    rel = (torch.linalg.norm(got.double() - want.double())
-           / torch.linalg.norm(want.double())).item()
+    from mvldm_tpu_torch.tools.kernel_compare import rel_l2
+
+    rel = rel_l2(got, want)
     if not torch.isfinite(got).all() or not rel <= F32_KERNEL_REL_L2:
         fail(f"{what}: f32 relative L2 {rel:.4g} > {F32_KERNEL_REL_L2}")
     return dict(max_abs_err=(got - want).abs().max().item(), rel_l2=rel,
@@ -371,10 +376,14 @@ def f32_kernels_phase(card: str, gen) -> dict:
     """The f32 route's four wrappers (csrc/f32_route.cu) at the f32 UNet's
     shapes (the joint 32x32 attention with its CFG bias, and the C = 320
     fused blocks, the widest that take the fused path in f32) against their
-    plain versions in f32, with device times, the bound at the FP32 FFMA
-    rate (67 TFLOP/s) or the bytes, and the library call: SDPA in f32 and
-    its backward; the fused blocks have none (their decomposed path beside
-    them)."""
+    plain versions in f32, with device times, the bound or the bytes, and
+    the library call: SDPA in f32; the fused blocks have none (their
+    decomposed path beside them). The forward and the fused blocks run on
+    FFMA, bound at 67 TFLOP/s. The backward (split TF32 on the tensor
+    cores) runs at the joint 32x32, 16x16 and 8x8 shapes, one line each,
+    with SDPA's f32 backward and its backend, its bound at three TF32
+    products for each f32 one (494.7 TFLOP/s) and the FFMA bound beside it
+    (``ffma_bound_ms``); the kernels line takes the 32x32 one."""
     import torch.nn.functional as F
 
     from mvldm_tpu_torch.ops.attention import (
@@ -383,6 +392,7 @@ def f32_kernels_phase(card: str, gen) -> dict:
         attention_reference_lse,
     )
     from mvldm_tpu_torch.ops.f32_route import (
+        bwd_smem_bytes,
         flash_attention_bwd_f32,
         flash_attention_f32,
         fused_ln_geglu_ff_f32,
@@ -392,21 +402,22 @@ def f32_kernels_phase(card: str, gen) -> dict:
     from mvldm_tpu_torch.ops.fused_ff import fused_ln_geglu_ff_reference, ln_geglu_ff_decomposed
     from mvldm_tpu_torch.tools.kernel_compare import (
         ATTN_BLOCK_SHAPES,
+        F32_BWD_SHAPES,
         FF_BLOCK_SHAPES,
         SAMPLING_SHAPES,
         attn_block_inputs,
+        f32_train_inputs,
         ff_block_inputs,
-        train_inputs,
+        sdpa_f32_bwd,
     )
-    from mvldm_tpu_torch.tools.measure import PEAK_FP32_FLOPS
+    from mvldm_tpu_torch.tools.measure import PEAK_FP32_FLOPS, f32_bwd_bounds
 
     def f32(t):  # an f32 copy that keeps a transposed weight transposed
         return t.t().float().t() if t.dim() == 2 and not t.is_contiguous() else t.float()
 
     recs = {}
     label, b, h, l, d, with_bias = SAMPLING_SHAPES[0]
-    q, k, v, g, bias = (None if t is None else f32(t)
-                        for t in train_inputs(gen, b, h, l, d, with_bias))
+    q, k, v, g, bias = f32_train_inputs(gen, b, h, l, d, with_bias)
     out, lse = flash_attention_f32(q, k, v, bias, return_lse=True)
     ref, ref_lse = attention_reference_lse(q, k, v, bias)
     acc = _f32_check(out, ref, f"flash_attention_f32 {label}")
@@ -419,20 +430,31 @@ def f32_kernels_phase(card: str, gen) -> dict:
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)),
         **dict(zip(("bound_ms", "bound_by"), bound(
             4.0 * b * h * l * l * d, nbytes(q, k, v, bias, out), PEAK_FP32_FLOPS))))
-    got = flash_attention_bwd_f32(q, k, v, bias, out, lse, g)
-    want = attention_bwd_reference(q, k, v, bias, g)
-    checks = {n: _f32_check(x, y, f"flash_attention_bwd_f32 {n} {label}")
-              for n, x, y in zip(("dq", "dk", "dv", "dbias"), got, want)}
-    recs["flash_attention_bwd_f32"] = dict(
-        shape=label, max_abs_err=max(c["max_abs_err"] for c in checks.values()), **checks,
-        ms=time_ms(lambda: flash_attention_bwd_f32(q, k, v, bias, out, lse, g)),
-        plain_ms=time_ms(lambda: attention_bwd_reference(q, k, v, bias, g), 3),
-        library_ms=sdpa_bwd_ms(q, k, v, bias, g, 5),
-        **dict(zip(("bound_ms", "bound_by"), bound(
-            10.0 * b * h * l * l * d, nbytes(q, k, v, out, g, lse, bias, *got),
-            PEAK_FP32_FLOPS))))
-    del q, k, v, g, out, lse, got, want
-    torch.cuda.empty_cache()
+    bwd = []
+    for i, (label, b, h, l, d, with_bias) in enumerate(F32_BWD_SHAPES[:3]):
+        if i:  # the joint 32x32 shape's inputs are the forward's
+            q, k, v, g, bias = f32_train_inputs(gen, b, h, l, d, with_bias)
+            out, lse = flash_attention_f32(q, k, v, bias, return_lse=True)
+        got = flash_attention_bwd_f32(q, k, v, bias, out, lse, g)
+        want = attention_bwd_reference(q, k, v, bias, g)
+        checks = {n: _f32_check(x, y, f"flash_attention_bwd_f32 {n} {label}")
+                  for n, x, y in zip(("dq", "dk", "dv", "dbias"), got, want)}
+        iters = 5 if l >= 1024 else 20
+        rec = dict(shape=label, B=b, H=h, L=l, D=d,
+                   max_abs_err=max(c["max_abs_err"] for c in checks.values()), **checks,
+                   ms=time_ms(lambda: flash_attention_bwd_f32(q, k, v, bias, out, lse, g),
+                              iters),
+                   plain_ms=time_ms(lambda: attention_bwd_reference(q, k, v, bias, g), 3),
+                   **sdpa_f32_bwd(q, k, v, bias, g, iters),
+                   **f32_bwd_bounds(b, h, l, l, d, nbytes(q, k, v, out, g, lse, bias, *got)))
+        rec["library_ms"] = rec["sdpa_f32_bwd_ms"]
+        rec["smem_bytes"] = bwd_smem_bytes(d)
+        emit(phase="f32_bwd", kernel="flash_attention_bwd_f32", route="f32", **rec, card=card)
+        bwd.append(rec)
+        del q, k, v, g, out, lse, got, want
+        torch.cuda.empty_cache()
+    recs["flash_attention_bwd_f32"] = dict(bwd[0], max_abs_err=max(r["max_abs_err"]
+                                                                   for r in bwd))
 
     label, n, l, c, heads, d = ATTN_BLOCK_SHAPES[0]
     args = (*(f32(t) for t in attn_block_inputs(gen, n, l, c, heads, d)), heads, d)
@@ -964,6 +986,21 @@ def train_profile_phase(card: str, state, step, batch, gen) -> None:
          "device events", wall_ms=wall_ms, **device_breakdown(prof, 1), card=card)
 
 
+def sass_phase(card: str) -> None:
+    """The f32 route's backward instances in the built library's SASS
+    (cuobjdump): each must run its products as HGMMA on TF32 operands, and
+    none as HMMA."""
+    from mvldm_tpu_torch.ops import _build
+
+    bwd = {k: v for k, v in _build.sass_report("f32_route").items()
+           if k.startswith(("flash_bwd_dq_f32", "flash_bwd_dkv_f32"))}
+    emit(phase="sass", source="mvldm_tpu_torch/csrc/f32_route.cu", kernels=bwd, card=card)
+    bad = [k for k, v in bwd.items()
+           if v["HMMA"] or not any(f.endswith("TF32") for f in v["HGMMA forms"])]
+    if not bwd or bad:
+        fail(f"f32 backward instances without TF32 HGMMA (or with HMMA): {bad or 'none found'}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -986,7 +1023,9 @@ def main() -> int:
     t_start = time.perf_counter()
     logs = _build.build()
     emit(phase="build", seconds=time.perf_counter() - t_start,
-         per_source_s={k: s for k, (s, _) in logs.items()}, card=card)
+         per_source_s={k: s for k, (s, _) in logs.items()},
+         ptxas={k: _build.ptxas_report(log) for k, (_, log) in logs.items()}, card=card)
+    sass_phase(card)
 
     gen = torch.Generator("cuda").manual_seed(0)
     results = {

@@ -1,7 +1,7 @@
 // The f32 route of the main path's kernels for Hopper (sm_90a): f32 in, f32
-// out, f32 arithmetic throughout (FFMA, no tensor cores: TF32 would round
-// every operand to 11 bits, where the JAX package's f32 Pallas kernels keep
-// f32 products), for models left at the default f32 precision.
+// out, with f32 accuracy throughout, for models left at the default f32
+// precision. A single TF32 product would round every operand to 11 bits,
+// where the JAX package's f32 Pallas kernels keep f32 products.
 //
 // Replaces the same TPU kernels as the bf16 bodies, in f32:
 //   * `_flash_kernel` (mvldm_tpu/ops/attention.py), forward with the
@@ -14,21 +14,27 @@
 //     mvldm_f32_layer_norm, mvldm_f32_gemm (head-split output, head-merged
 //     input, + bias, + residual), the flash forward, and mvldm_f32_geglu.
 //
-// What bounds it: f32 FFMA, 67 TFLOP/s on the H100 SXM, ~1/15 of the bf16
-// tensor rate; the L x L scores never reach device memory. The design is
-// the simple one that is right first:
-//   * attention: blocks of 8 warps, each warp 4 rows (32 rows a block, the
+// What bounds it: the products. On FFMA, 67 TFLOP/s on the H100 SXM, ~1/15
+// of the bf16 tensor rate; on the tensor cores as split TF32, three TF32
+// products for each f32 one at 494.7 TFLOP/s, 2.5x the FFMA rate. The L x L
+// scores never reach device memory.
+//   * backward (dQ, dK / dV / dbias): split TF32 on wgmma, see "backward"
+//     below: warpgroups of 64 rows, the resident operand's hi / lo tiles
+//     loaded once, the streamed tiles split on their way into shared
+//     memory and also stored transposed where wgmma needs them K-major, P
+//     and dS split in registers, no atomics.
+//   * forward: FFMA, the simple design that is right first: blocks of 8
+//     warps, each warp 4 rows (32 rows a block, the
 //     resident operand in shared memory); 32-row tiles of the streamed
 //     operand through shared memory, padded to D + 4 floats a row where a
 //     lane reads its own row 16 bytes at a time (no bank conflicts); lane j
-//     owns key (or query) j of the tile for the dot products, reading the
-//     warp's rows as 16-byte broadcasts; p (or dS) goes to the warp's
+//     owns key j of the tile for the dot products, reading the
+//     warp's rows as 16-byte broadcasts; p goes to the warp's
 //     staging array in shared memory and comes back four keys at a time
 //     while each lane accumulates columns lane, lane + 32, ...: ~1 shared
 //     memory read for every 2 to 3 FMAs. The online softmax in f32 with
-//     expf and warp shuffles. Keys and queries past the end are zero rows
-//     with p = 0. Head dims multiples of 4, up to 512 forward, 160
-//     backward.
+//     expf and warp shuffles. Keys past the end are zero rows
+//     with p = 0. Head dims multiples of 4, up to 512.
 //   * GEMM: out = A W^T with W a torch Linear weight (N, K) row-major, the
 //     micro_matmul.cu FFMA tile (128 x 128 outputs a block of 256 threads,
 //     8 x 8 a thread, both operands staged k-major, the next 8-deep step
@@ -37,7 +43,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attn_tile.cuh"    // quad_sum
+#include "hopper_tile.cuh"  // split tf32, wgmma, descriptors
+
 namespace {
+
+using attn_tile::quad_sum;
+using namespace hopper_tile;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 8, kAttnThreads = kWarps * 32;
@@ -187,172 +199,450 @@ __global__ void __launch_bounds__(kAttnThreads)
 }
 
 // ------------------------------------------------------------ backward
+//
+// On the tensor cores as split TF32 (hopper_tile.cuh): every product of an
+// f32 tile pair runs as three tf32 wgmma (hi hi, hi lo, lo hi). Blocks of
+// one or two warpgroups, each owning 64 rows; the resident operand's hi
+// and lo tiles are loaded once. The streamed tiles go global -> registers
+// (16-byte loads, issued before the products of the tile in use) -> split
+// -> shared memory, stored both as they lie (K-major operand of S and dP)
+// and transposed (the K-major operand of dQ = dS K, dV = P^T dO and dK =
+// dS^T Q, which wgmma cannot read MN-major in tf32). P and dS stay in
+// registers and go in as A fragments, split there.
+
+// Head-dim instances (DN >= D, columns past D zero) and their tiles:
+// warpgroups a block, streamed rows a stage and stages, as shared memory
+// allows (a split f32 tile takes four times a bf16 one).
+__host__ __device__ constexpr int bwd_dn(int D) {
+  return D <= 16 ? 16 : D <= 40 ? 40 : D <= 64 ? 64 : D <= 80 ? 80 : 160;
+}
+__host__ __device__ constexpr int dq_wgs(int DN) { return DN <= 64 ? 2 : 1; }
+__host__ __device__ constexpr int dq_bc(int DN) { return DN <= 40 ? 64 : DN <= 80 ? 32 : 16; }
+__host__ __device__ constexpr int dq_stages(int DN) { return DN <= 80 ? 2 : 1; }
+__host__ __device__ constexpr int dkv_wgs(int DN) { return DN <= 64 ? 2 : 1; }
+__host__ __device__ constexpr int dkv_bc(int DN) {
+  return DN <= 40 ? 32 : DN <= 80 ? 16 : 8;
+}
+__host__ __device__ constexpr int dkv_stages(int DN) { return DN <= 80 ? 2 : 1; }
+
+// The long sums (dQ over the keys, dK and dV over the queries) leave the
+// tensor cores' accumulator every kFlushRows rows: its error grows with the
+// number of products summed, as if each HGMMA rounded toward zero (on an
+// H100, 2.4e-5 relative at 5120 keys against 1.9e-6 with chunks of
+// 256), so each chunk's sum is added in f32 (FADD, round to nearest) into
+// a second register accumulator where the registers allow (*_reg_total),
+// else into the output rows in device memory (the first chunk writes), and
+// the next chunk's first product overwrites the accumulator. The same
+// thread owns each output element throughout, so the order of the sums is
+// fixed.
+constexpr int kFlushRows = 256;
+__host__ __device__ constexpr bool dq_reg_total(int DN) { return DN <= 64; }
+__host__ __device__ constexpr bool dkv_reg_total(int DN) { return DN <= 64; }
+
+constexpr size_t dq_bytes(int DN) {
+  return ((size_t)4 * dq_wgs(DN) * 64 * DN + (size_t)dq_stages(DN) * dq_bc(DN) * (6 * DN + 1) +
+          dq_wgs(DN) * 64) * 4;
+}
+constexpr size_t dkv_bytes(int DN) {
+  return ((size_t)4 * dkv_wgs(DN) * 64 * DN +
+          (size_t)dkv_stages(DN) * dkv_bc(DN) * (8 * DN + 2)) * 4;
+}
+
+// x split into hi and lo, stored at element off of the hi and lo tiles.
+__device__ __forceinline__ void store_split4(float* hi, float* lo, int off, float4 x, float4& h,
+                                             float4& l) {
+  split_tf32(x.x, h.x, l.x);
+  split_tf32(x.y, h.y, l.y);
+  split_tf32(x.z, h.z, l.z);
+  split_tf32(x.w, h.w, l.w);
+  *reinterpret_cast<float4*>(hi + off) = h;
+  *reinterpret_cast<float4*>(lo + off) = l;
+}
+
+// Rows [r0, r0 + R) of an (L, D) f32 matrix as hi and lo R x DN tiles
+// (zeros past L and past D), by THREADS threads, one 16-byte load each at a
+// time; for the resident operands, loaded once.
+template <int R, int DN, int THREADS>
+__device__ __forceinline__ void stage_split(float* hi, float* lo, const float* src, int rows,
+                                            int D) {
+  constexpr int NC = DN / 4;
+  for (int idx = threadIdx.x; idx < R * NC; idx += THREADS) {
+    const int rr = idx % 8, cg = (idx / 8) % NC, rg = idx / (8 * NC);
+    const int r = rg * 8 + rr;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < rows && 4 * cg < D)
+      x = __ldg(reinterpret_cast<const float4*>(src + (size_t)r * D) + cg);
+    float4 h, l;
+    store_split4(hi, lo, (rg * NC + cg) * 32 + rr * 4, x, h, l);
+  }
+}
+
+// One streamed tile of R rows held in registers between its load (before
+// the products of the tile in use) and its store into the next stage.
+template <int R, int DN, int THREADS>
+struct StreamTile {
+  static constexpr int NC = DN / 4, CHUNKS = R * NC, N = (CHUNKS + THREADS - 1) / THREADS;
+  float4 x[N];
+
+  __device__ __forceinline__ void load(const float* src, int rows, int D) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int idx = threadIdx.x + i * THREADS;
+      const int rr = idx % 8, cg = (idx / 8) % NC, r = idx / (8 * NC) * 8 + rr;
+      x[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (idx < CHUNKS && r < rows && 4 * cg < D)
+        x[i] = __ldg(reinterpret_cast<const float4*>(src + (size_t)r * D) + cg);
+    }
+  }
+
+  // hi / lo as an R x DN tile; with thi != nullptr also transposed, as a
+  // DN x R tile whose columns (the rows here) are in tf32_kperm order.
+  __device__ __forceinline__ void store(float* hi, float* lo, float* thi, float* tlo) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int idx = threadIdx.x + i * THREADS;
+      if (idx >= CHUNKS) continue;
+      const int rr = idx % 8, cg = (idx / 8) % NC, rg = idx / (8 * NC);
+      float4 h, l;
+      store_split4(hi, lo, (rg * NC + cg) * 32 + rr * 4, x[i], h, l);
+      if (thi == nullptr) continue;
+      const int col = rg * 8 + tf32_kperm(rr);
+      const float hs[4] = {h.x, h.y, h.z, h.w}, ls[4] = {l.x, l.y, l.z, l.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int t = f32_tile_off<R>(4 * cg + j, col);
+        thi[t] = hs[j];
+        tlo[t] = ls[j];
+      }
+    }
+  }
+};
+
+// d = A B over DN / 8 k steps, A rows [64 wg, +64) of the resident split
+// tile (ah, al), B the streamed split tile (bh, bl), both K-major with DN
+// columns; N = B's rows.
+template <int N, int DN>
+__device__ __forceinline__ void split_product_ss(float* d, const float* ah, const float* al,
+                                                 const float* bh, const float* bl, int wg) {
+#pragma unroll
+  for (int kk = 0; kk < DN / 8; ++kk) {
+    wgmma_tf32_ss<N>(d, desc_tf32<DN>(ah, wg * 8, kk), desc_tf32<DN>(bh, 0, kk), kk > 0);
+    wgmma_tf32_ss<N>(d, desc_tf32<DN>(ah, wg * 8, kk), desc_tf32<DN>(bl, 0, kk), 1);
+    wgmma_tf32_ss<N>(d, desc_tf32<DN>(al, wg * 8, kk), desc_tf32<DN>(bh, 0, kk), 1);
+  }
+}
+
+// d = (d if accumulate) + A B, A the split fragments of a 64 x BC
+// accumulator (BC / 8 k steps), B the transposed split tile (DN rows, BC
+// columns).
+template <int DN, int BC>
+__device__ __forceinline__ void split_product_rs(float* d, const uint32_t (*ah)[4],
+                                                 const uint32_t (*al)[4], const float* bh,
+                                                 const float* bl, int accumulate) {
+#pragma unroll
+  for (int kk = 0; kk < BC / 8; ++kk) {
+    wgmma_tf32_rs<DN>(d, ah[kk], desc_tf32<BC>(bh, 0, kk), kk > 0 || accumulate);
+    wgmma_tf32_rs<DN>(d, ah[kk], desc_tf32<BC>(bl, 0, kk), 1);
+    wgmma_tf32_rs<DN>(d, al[kk], desc_tf32<BC>(bh, 0, kk), 1);
+  }
+}
+
+// out[r, :D] (+)= scale * acc for the thread's rows r0 and r1 = r0 + 8 of a
+// 64-row accumulator with DN columns (rows >= L are not stored). first:
+// write instead of add.
+template <int DN>
+__device__ __forceinline__ void add_rows(float* out, const float* acc, int r0, int r1, int L, int D,
+                                         int t, float scale, bool first) {
+#pragma unroll
+  for (int n = 0; n < DN / 8; ++n) {
+    const int d = n * 8 + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = h ? r1 : r0;
+      if (d >= D || r >= L) continue;
+      float2* p = reinterpret_cast<float2*>(out + (size_t)r * D + d);
+      float2 x = make_float2(acc[4 * n + 2 * h] * scale, acc[4 * n + 2 * h + 1] * scale);
+      if (!first) {
+        const float2 y = *p;
+        x.x += y.x;
+        x.y += y.y;
+      }
+      *p = x;
+    }
+  }
+}
 
 // dq = scale * sum_j ds_ij k_j, ds = p (dp - delta), p = exp(scale q k^T +
 // bias - lse), dp = dO v^T; delta = rowsum(dO * O) is computed here and
-// written for the dK/dV kernel.
-template <int NC>
-__global__ void __launch_bounds__(kAttnThreads)
+// written for the dK/dV kernel. One block a (batch * head, 64 or 128
+// queries); Q and dO resident, the keys stream.
+template <int DN>
+__global__ void __launch_bounds__(dq_wgs(DN) * 128, 1)
     flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ o,
                      const float* __restrict__ g, const float* __restrict__ lse,
                      const float* __restrict__ bias, float* __restrict__ delta,
                      float* __restrict__ dq, int H, int Lq, int Lk, int D, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int KP = lane_pitch(D);
-  float* Qs = smem;                   // kRows x D
-  float* Gs = Qs + kRows * D;         // kRows x D
-  float* Ks = Gs + kRows * D;         // kTileKeys x KP
-  float* Vs = Ks + kTileKeys * KP;    // kTileKeys x KP
-  float* Ss = Vs + kTileKeys * KP;    // kWarps x kRowsPerWarp x kTileKeys (ds)
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int bh = blockIdx.y, b = bh / H, q0 = blockIdx.x * kRows;
-  const size_t qoff = (size_t)bh * Lq * D;
+  constexpr int T = dq_wgs(DN) * 128, BR = dq_wgs(DN) * 64;
+  constexpr int BC = dq_bc(DN), NS = dq_stages(DN), TILE = BR * DN, ST = BC * DN;
+  extern __shared__ __align__(128) float smem[];
+  float* Qh = smem;
+  float* Ql = Qh + TILE;
+  float* Gh = Ql + TILE;
+  float* Gl = Gh + TILE;
+  float* ring = Gl + TILE;         // [stage][K hi | K lo | V hi | V lo | K^T hi | K^T lo]
+  float* Bs = ring + NS * 6 * ST;  // [stage][BC] key bias, -inf past Lk
+  float* Dls = Bs + NS * BC;       // [BR] delta
+
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int gq = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / H, q0 = blockIdx.x * BR;
+  const size_t qoff = (size_t)bh * Lq * D + (size_t)q0 * D;
   const float* kb = k + (size_t)bh * Lk * D;
   const float* vb = v + (size_t)bh * Lk * D;
-  load_rows(Qs, q + qoff, q0, Lq, D, D);
-  load_rows(Gs, g + qoff, q0, Lq, D, D);
-  const float* Qw = Qs + warp * kRowsPerWarp * D;
-  const float* Gw = Gs + warp * kRowsPerWarp * D;
-  float* Sw = Ss + warp * kRowsPerWarp * kTileKeys;
+  const int nk = (Lk + BC - 1) / BC;
 
-  float lr[kRowsPerWarp], dr[kRowsPerWarp], acc[kRowsPerWarp][NC];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = q0 + warp * kRowsPerWarp + r;
-    float part = 0.f;
-    if (row < Lq)
-      for (int d = lane; d < D; d += 32)
-        part = fmaf(g[qoff + (size_t)row * D + d], o[qoff + (size_t)row * D + d], part);
-    dr[r] = warp_sum(part);
-    lr[r] = row < Lq ? lse[(size_t)bh * Lq + row] : 0.f;
-    if (row < Lq && lane == 0) delta[(size_t)bh * Lq + row] = dr[r];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
-  }
-  for (int k0 = 0; k0 < Lk; k0 += kTileKeys) {
-    __syncthreads();
-    load_rows(Ks, kb, k0, Lk, D, KP);
-    load_rows(Vs, vb, k0, Lk, D, KP);
-    __syncthreads();
-    const bool valid = k0 + lane < Lk;
-    const float bj = bias != nullptr && valid ? bias[(size_t)b * Lk + k0 + lane] : 0.f;
-    float s[kRowsPerWarp] = {}, dp[kRowsPerWarp] = {};
-    const float* Kj = Ks + lane * KP;
-    const float* Vj = Vs + lane * KP;
-    for (int d = 0; d < D; d += 4) {
-      const float4 kv = ld4(Kj + d), vv = ld4(Vj + d);
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        s[r] = dot4(ld4(Qw + r * D + d), kv, s[r]);
-        dp[r] = dot4(ld4(Gw + r * D + d), vv, dp[r]);
+  StreamTile<BC, DN, T> kt, vt;
+  float bnext = 0.f;
+  auto load = [&](int j) {
+    const int k0 = j * BC;
+    kt.load(kb + (size_t)k0 * D, Lk - k0, D);
+    vt.load(vb + (size_t)k0 * D, Lk - k0, D);
+    if (tid < BC) {
+      const int key = k0 + tid;
+      bnext = key >= Lk ? -INFINITY : bias != nullptr ? bias[(size_t)b * Lk + key] : 0.f;
+    }
+  };
+  load(0);
+  stage_split<BR, DN, T>(Qh, Ql, q + qoff, Lq - q0, D);
+  stage_split<BR, DN, T>(Gh, Gl, g + qoff, Lq - q0, D);
+  if (tid < BR) {  // delta = rowsum(dO * O) in f32, one row a thread
+    float acc = 0.f;
+    if (q0 + tid < Lq) {
+      const float4* o4 = reinterpret_cast<const float4*>(o + qoff + (size_t)tid * D);
+      const float4* g4 = reinterpret_cast<const float4*>(g + qoff + (size_t)tid * D);
+      for (int c = 0; c < D / 4; ++c) {
+        const float4 ov = __ldg(o4 + c), gv = __ldg(g4 + c);
+        acc = fmaf(ov.w, gv.w, fmaf(ov.z, gv.z, fmaf(ov.y, gv.y, fmaf(ov.x, gv.x, acc))));
       }
+      delta[(size_t)bh * Lq + q0 + tid] = acc;
     }
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const float p = valid ? expf(fmaf(s[r], scale, bj) - lr[r]) : 0.f;
-      Sw[r * kTileKeys + lane] = p * (dp[r] - dr[r]);
-    }
-    __syncwarp();
-    accumulate<NC>(acc, Sw, Ks, KP, D, lane);
-    __syncwarp();
+    Dls[tid] = acc;
   }
+
+  // The thread's rows: lr0 = 64 wg + 16 warp + gq and lr0 + 8.
+  const int lr0 = wg * 64 + (tid % 128) / 32 * 16 + gq;
+  const int r0 = q0 + lr0, r1 = r0 + 8;
+  const float lse0 = r0 < Lq ? lse[(size_t)bh * Lq + r0] : INFINITY;
+  const float lse1 = r1 < Lq ? lse[(size_t)bh * Lq + r1] : INFINITY;
+  const bool active = q0 + wg * 64 < Lq;  // warpgroup-uniform
+
+  float acc[DN / 2], tot[dq_reg_total(DN) ? DN / 2 : 1] = {};
+  float dl0 = 0.f, dl1 = 0.f;
+
+  for (int c0 = 0; c0 < nk; c0 += kFlushRows / BC) {
+    const int c1 = min(nk, c0 + kFlushRows / BC);
+    for (int j = c0; j < c1; ++j) {
+      float* S = ring + (j % NS) * 6 * ST;
+      float* Bt = Bs + (j % NS) * BC;
+      if (NS == 1) __syncthreads();  // every warpgroup is done with tile j - 1
+      kt.store(S, S + ST, S + 4 * ST, S + 5 * ST);
+      vt.store(S + 2 * ST, S + 3 * ST, nullptr, nullptr);
+      if (tid < BC) Bt[tid] = bnext;
+      fence_proxy_async();
+      __syncthreads();  // tile j (and, the first time, Q, dO, delta) is in
+      if (j == 0) {
+        dl0 = Dls[lr0];
+        dl1 = Dls[lr0 + 8];
+      }
+      if (j + 1 < nk) load(j + 1);
+      if (!active) continue;
+
+      // S = Q K^T and dP = dO V^T, issued together; exp of S overlaps dP.
+      float s[BC / 2], dp[BC / 2];
+      wgmma_fence();
+      split_product_ss<BC, DN>(s, Qh, Ql, S, S + ST, wg);
+      wgmma_commit();
+      split_product_ss<BC, DN>(dp, Gh, Gl, S + 2 * ST, S + 3 * ST, wg);
+      wgmma_commit();
+      wgmma_wait<1>();
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = q0 + warp * kRowsPerWarp + r;
-    if (row >= Lq) continue;
+      for (int n = 0; n < BC / 8; ++n) {
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = c * 32 + lane;
-      if (d < D) dq[qoff + (size_t)row * D + d] = acc[r][c] * scale;
+        for (int e = 0; e < 2; ++e) {
+          const float bj = Bt[n * 8 + 2 * t + e];
+          s[4 * n + e] = expf(fmaf(s[4 * n + e], scale, bj) - lse0);
+          s[4 * n + 2 + e] = expf(fmaf(s[4 * n + 2 + e], scale, bj) - lse1);
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int n = 0; n < BC / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          dp[4 * n + e] = s[4 * n + e] * (dp[4 * n + e] - dl0);
+          dp[4 * n + 2 + e] = s[4 * n + 2 + e] * (dp[4 * n + 2 + e] - dl1);
+        }
+      }
+
+      // dQ += dS K, B = K^T from the same stage.
+      uint32_t ah[BC / 8][4], al[BC / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < BC / 8; ++kk) pack_a_tf32(ah[kk], al[kk], dp, kk);
+      wgmma_fence();
+      split_product_rs<DN, BC>(acc, ah, al, S + 4 * ST, S + 5 * ST, j > c0);
+      wgmma_commit();
+      wgmma_wait<0>();
+    }
+    if constexpr (dq_reg_total(DN)) {
+#pragma unroll
+      for (int i = 0; i < DN / 2; ++i) tot[i] += acc[i];
+    } else if (active) {
+      add_rows<DN>(dq + (size_t)bh * Lq * D, acc, r0, r1, Lq, D, t, scale, c0 == 0);
     }
   }
+  if constexpr (dq_reg_total(DN))
+    if (active) add_rows<DN>(dq + (size_t)bh * Lq * D, tot, r0, r1, Lq, D, t, scale, true);
 }
 
 // dk = scale * sum_i ds_ij q_i, dv = sum_i p_ij dO_i, dbias_j = sum_i ds_ij
-// (per head): each warp owns 4 keys, the queries stream in 32-row tiles.
-template <int NC>
-__global__ void __launch_bounds__(kAttnThreads)
+// (per head). One block a (batch * head, 64 or 128 keys); K and V
+// resident, the queries stream.
+template <int DN>
+__global__ void __launch_bounds__(dkv_wgs(DN) * 128, 1)
     flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ g,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       const float* __restrict__ bias, float* __restrict__ dk,
                       float* __restrict__ dv, float* __restrict__ dbias, int H, int Lq, int Lk,
                       int D, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int QP = lane_pitch(D);
-  constexpr int kStage = kWarps * kRowsPerWarp * kTileKeys;
-  float* Ks = smem;                   // kRows x D
-  float* Vs = Ks + kRows * D;         // kRows x D
-  float* Qs = Vs + kRows * D;         // kTileKeys x QP (queries)
-  float* Gs = Qs + kTileKeys * QP;    // kTileKeys x QP
-  float* Ps = Gs + kTileKeys * QP;    // kWarps x kRowsPerWarp x kTileKeys (p)
-  float* Ss = Ps + kStage;            // the same for ds
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int bh = blockIdx.y, b = bh / H, k0 = blockIdx.x * kRows;
-  const size_t koff = (size_t)bh * Lk * D, qoff = (size_t)bh * Lq * D;
-  load_rows(Ks, k + koff, k0, Lk, D, D);
-  load_rows(Vs, v + koff, k0, Lk, D, D);
-  const float* Kw = Ks + warp * kRowsPerWarp * D;
-  const float* Vw = Vs + warp * kRowsPerWarp * D;
-  float* Pw = Ps + warp * kRowsPerWarp * kTileKeys;
-  float* Sw = Ss + warp * kRowsPerWarp * kTileKeys;
+  constexpr int T = dkv_wgs(DN) * 128, BR = dkv_wgs(DN) * 64;
+  constexpr int BC = dkv_bc(DN), NS = dkv_stages(DN), TILE = BR * DN, ST = BC * DN;
+  extern __shared__ __align__(128) float smem[];
+  float* Kh = smem;
+  float* Kl = Kh + TILE;
+  float* Vh = Kl + TILE;
+  float* Vl = Vh + TILE;
+  float* ring = Vl + TILE;         // [stage][Q hi | lo | dO hi | lo | Q^T hi | lo | dO^T hi | lo]
+  float* Ls = ring + NS * 8 * ST;  // [stage][lse (+inf past Lq) | delta (0 past Lq)]
 
-  float br[kRowsPerWarp], db[kRowsPerWarp], dka[kRowsPerWarp][NC], dva[kRowsPerWarp][NC];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int key = k0 + warp * kRowsPerWarp + r;
-    br[r] = bias != nullptr && key < Lk ? bias[(size_t)b * Lk + key] : 0.f;
-    db[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dka[r][c] = dva[r][c] = 0.f;
-  }
-  for (int q0 = 0; q0 < Lq; q0 += kTileKeys) {
-    __syncthreads();
-    load_rows(Qs, q + qoff, q0, Lq, D, QP);
-    load_rows(Gs, g + qoff, q0, Lq, D, QP);
-    __syncthreads();
-    const bool valid = q0 + lane < Lq;
-    const float li = valid ? lse[(size_t)bh * Lq + q0 + lane] : 0.f;
-    const float di = valid ? delta[(size_t)bh * Lq + q0 + lane] : 0.f;
-    float s[kRowsPerWarp] = {}, dp[kRowsPerWarp] = {};
-    const float* Qi = Qs + lane * QP;
-    const float* Gi = Gs + lane * QP;
-    for (int d = 0; d < D; d += 4) {
-      const float4 qv = ld4(Qi + d), gv = ld4(Gi + d);
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        s[r] = dot4(qv, ld4(Kw + r * D + d), s[r]);
-        dp[r] = dot4(gv, ld4(Vw + r * D + d), dp[r]);
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int gq = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / H, k0 = blockIdx.x * BR;
+  const size_t koff = (size_t)bh * Lk * D + (size_t)k0 * D;
+  const float* qb = q + (size_t)bh * Lq * D;
+  const float* gb = g + (size_t)bh * Lq * D;
+  const int nq = (Lq + BC - 1) / BC;
+
+  StreamTile<BC, DN, T> qt, gt;
+  float lnext = 0.f, dnext = 0.f;
+  auto load = [&](int j) {
+    const int i0 = j * BC;
+    qt.load(qb + (size_t)i0 * D, Lq - i0, D);
+    gt.load(gb + (size_t)i0 * D, Lq - i0, D);
+    if (tid < BC) {
+      const int qi = i0 + tid;
+      lnext = qi < Lq ? lse[(size_t)bh * Lq + qi] : INFINITY;
+      dnext = qi < Lq ? delta[(size_t)bh * Lq + qi] : 0.f;
+    }
+  };
+  load(0);
+  stage_split<BR, DN, T>(Kh, Kl, k + koff, Lk - k0, D);
+  stage_split<BR, DN, T>(Vh, Vl, v + koff, Lk - k0, D);
+
+  // The thread's rows are keys key0 = k0 + 64 wg + 16 warp + gq and key0 + 8.
+  const int key0 = k0 + wg * 64 + (tid % 128) / 32 * 16 + gq, key1 = key0 + 8;
+  const float bb0 = bias != nullptr && key0 < Lk ? bias[(size_t)b * Lk + key0] : 0.f;
+  const float bb1 = bias != nullptr && key1 < Lk ? bias[(size_t)b * Lk + key1] : 0.f;
+  const bool active = k0 + wg * 64 < Lk;  // warpgroup-uniform
+
+  float dva[DN / 2], dka[DN / 2];
+  float dvt[dkv_reg_total(DN) ? DN / 2 : 1] = {}, dkt[dkv_reg_total(DN) ? DN / 2 : 1] = {};
+  float db0 = 0.f, db1 = 0.f;
+
+  for (int c0 = 0; c0 < nq; c0 += kFlushRows / BC) {
+    const int c1 = min(nq, c0 + kFlushRows / BC);
+    for (int j = c0; j < c1; ++j) {
+      float* S = ring + (j % NS) * 8 * ST;
+      float* Lt = Ls + (j % NS) * 2 * BC;
+      if (NS == 1) __syncthreads();  // every warpgroup is done with tile j - 1
+      qt.store(S, S + ST, S + 4 * ST, S + 5 * ST);
+      gt.store(S + 2 * ST, S + 3 * ST, S + 6 * ST, S + 7 * ST);
+      if (tid < BC) {
+        Lt[tid] = lnext;
+        Lt[BC + tid] = dnext;
       }
-    }
+      fence_proxy_async();
+      __syncthreads();  // tile j (and, the first time, K and V) is in
+      if (j + 1 < nq) load(j + 1);
+      if (!active) continue;
+
+      // S^T = K Q^T and dP^T = V dO^T (rows keys, columns queries).
+      float s[BC / 2], dp[BC / 2];
+      wgmma_fence();
+      split_product_ss<BC, DN>(s, Kh, Kl, S, S + ST, wg);
+      wgmma_commit();
+      split_product_ss<BC, DN>(dp, Vh, Vl, S + 2 * ST, S + 3 * ST, wg);
+      wgmma_commit();
+      wgmma_wait<1>();
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const float p = valid ? expf(fmaf(s[r], scale, br[r]) - li) : 0.f;
-      const float ds = p * (dp[r] - di);
-      db[r] += ds;
-      Pw[r * kTileKeys + lane] = p;
-      Sw[r * kTileKeys + lane] = ds;
-    }
-    __syncwarp();
-    accumulate<NC>(dva, Pw, Gs, QP, D, lane);
-    accumulate<NC>(dka, Sw, Qs, QP, D, lane);
-    __syncwarp();
-  }
+      for (int n = 0; n < BC / 8; ++n) {
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int key = k0 + warp * kRowsPerWarp + r;
-    const float dbr = warp_sum(db[r]);
-    if (key >= Lk) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = c * 32 + lane;
-      if (d < D) {
-        dk[koff + (size_t)key * D + d] = dka[r][c] * scale;
-        dv[koff + (size_t)key * D + d] = dva[r][c];
+        for (int e = 0; e < 2; ++e) {
+          const float li = Lt[n * 8 + 2 * t + e];
+          s[4 * n + e] = expf(fmaf(s[4 * n + e], scale, bb0) - li);
+          s[4 * n + 2 + e] = expf(fmaf(s[4 * n + 2 + e], scale, bb1) - li);
+        }
       }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int n = 0; n < BC / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float di = Lt[BC + n * 8 + 2 * t + e];
+          dp[4 * n + e] = s[4 * n + e] * (dp[4 * n + e] - di);
+          dp[4 * n + 2 + e] = s[4 * n + 2 + e] * (dp[4 * n + 2 + e] - di);
+          db0 += dp[4 * n + e];
+          db1 += dp[4 * n + 2 + e];
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q, B = dO^T and Q^T from the same stage.
+      uint32_t ph[BC / 8][4], pl[BC / 8][4], sh[BC / 8][4], sl[BC / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < BC / 8; ++kk) {
+        pack_a_tf32(ph[kk], pl[kk], s, kk);
+        pack_a_tf32(sh[kk], sl[kk], dp, kk);
+      }
+      wgmma_fence();
+      split_product_rs<DN, BC>(dva, ph, pl, S + 6 * ST, S + 7 * ST, j > c0);
+      split_product_rs<DN, BC>(dka, sh, sl, S + 4 * ST, S + 5 * ST, j > c0);
+      wgmma_commit();
+      wgmma_wait<0>();
     }
-    if (dbias != nullptr && lane == 0) dbias[(size_t)bh * Lk + key] = dbr;
+    if constexpr (dkv_reg_total(DN)) {
+#pragma unroll
+      for (int i = 0; i < DN / 2; ++i) {
+        dkt[i] += dka[i];
+        dvt[i] += dva[i];
+      }
+    } else if (active) {
+      add_rows<DN>(dk + (size_t)bh * Lk * D, dka, key0, key1, Lk, D, t, scale, c0 == 0);
+      add_rows<DN>(dv + (size_t)bh * Lk * D, dva, key0, key1, Lk, D, t, 1.f, c0 == 0);
+    }
+  }
+  if constexpr (dkv_reg_total(DN)) {
+    if (active) {
+      add_rows<DN>(dk + (size_t)bh * Lk * D, dkt, key0, key1, Lk, D, t, scale, true);
+      add_rows<DN>(dv + (size_t)bh * Lk * D, dvt, key0, key1, Lk, D, t, 1.f, true);
+    }
+  }
+
+  db0 = quad_sum(db0);
+  db1 = quad_sum(db1);
+  if (dbias != nullptr && t == 0) {
+    if (key0 < Lk) dbias[(size_t)bh * Lk + key0] = db0;
+    if (key1 < Lk) dbias[(size_t)bh * Lk + key1] = db1;
   }
 }
 
@@ -502,6 +792,8 @@ __global__ void __launch_bounds__(kGemmThreads)
 
 // Dynamic shared memory past 48 KB needs the kernel's opt-in, once an
 // instance (at its largest head dim), before any graph capture.
+constexpr size_t kMaxSmem = 232448;  // a block's dynamic shared memory on the H100
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -519,9 +811,6 @@ constexpr int kStaged = kWarps * kRowsPerWarp * kTileKeys;  // one staged (p or 
 constexpr size_t fwd_bytes(int D) {
   return (size_t)(kRows * D + kTileKeys * lane_pitch(D) + kTileKeys * D + kStaged) * 4;
 }
-constexpr size_t bwd_bytes(int D) {
-  return (size_t)(2 * kRows * D + 2 * kTileKeys * lane_pitch(D) + 2 * kStaged) * 4;
-}
 
 template <int NC>
 int fwd(const float* q, const float* k, const float* v, const float* bias, float* out,
@@ -534,26 +823,30 @@ int fwd(const float* q, const float* k, const float* v, const float* bias, float
   return (int)cudaGetLastError();
 }
 
-template <int NC>
+template <int DN>
 int bwd_dq(const float* q, const float* k, const float* v, const float* o, const float* g,
            const float* lse, const float* bias, float* delta, float* dq, int B, int H, int Lq,
            int Lk, int D, float scale, cudaStream_t s) {
-  static const cudaError_t err = allow_smem(flash_bwd_dq_f32<NC>, bwd_bytes(32 * NC));
+  constexpr int rows = dq_wgs(DN) * 64;
+  constexpr size_t bytes = dq_bytes(DN);
+  static_assert(bytes <= kMaxSmem, "dQ: shared memory");
+  static const cudaError_t err = allow_smem(flash_bwd_dq_f32<DN>, bytes);
   if (err != cudaSuccess) return (int)err;
-  const size_t bytes = bwd_bytes(D);
-  flash_bwd_dq_f32<NC><<<attn_grid(Lq, B * H), kAttnThreads, bytes, s>>>(
+  flash_bwd_dq_f32<DN><<<dim3((Lq + rows - 1) / rows, B * H), 2 * rows, bytes, s>>>(
       q, k, v, o, g, lse, bias, delta, dq, H, Lq, Lk, D, scale);
   return (int)cudaGetLastError();
 }
 
-template <int NC>
+template <int DN>
 int bwd_dkv(const float* q, const float* k, const float* v, const float* g, const float* lse,
             const float* delta, const float* bias, float* dk, float* dv, float* dbias, int B,
             int H, int Lq, int Lk, int D, float scale, cudaStream_t s) {
-  static const cudaError_t err = allow_smem(flash_bwd_dkv_f32<NC>, bwd_bytes(32 * NC));
+  constexpr int rows = dkv_wgs(DN) * 64;
+  constexpr size_t bytes = dkv_bytes(DN);
+  static_assert(bytes <= kMaxSmem, "dK/dV: shared memory");
+  static const cudaError_t err = allow_smem(flash_bwd_dkv_f32<DN>, bytes);
   if (err != cudaSuccess) return (int)err;
-  const size_t bytes = bwd_bytes(D);
-  flash_bwd_dkv_f32<NC><<<attn_grid(Lk, B * H), kAttnThreads, bytes, s>>>(
+  flash_bwd_dkv_f32<DN><<<dim3((Lk + rows - 1) / rows, B * H), 2 * rows, bytes, s>>>(
       q, k, v, g, lse, delta, bias, dk, dv, dbias, H, Lq, Lk, D, scale);
   return (int)cudaGetLastError();
 }
@@ -597,9 +890,13 @@ extern "C" int mvldm_f32_flash_bwd_dq(const void* q, const void* k, const void* 
   const auto* bf = static_cast<const float*>(bias);
   auto* df = static_cast<float*>(delta);
   auto* dqf = static_cast<float*>(dq);
-  if (D <= 64) return bwd_dq<2>(qf, kf, vf, of, gf, lf, bf, df, dqf, B, H, Lq, Lk, D, scale, s);
-  if (D <= 96) return bwd_dq<3>(qf, kf, vf, of, gf, lf, bf, df, dqf, B, H, Lq, Lk, D, scale, s);
-  return bwd_dq<5>(qf, kf, vf, of, gf, lf, bf, df, dqf, B, H, Lq, Lk, D, scale, s);
+  switch (bwd_dn(D)) {
+    case 16: return bwd_dq<16>(qf, kf, vf, of, gf, lf, bf, df, dqf, B, H, Lq, Lk, D, scale, s);
+    case 40: return bwd_dq<40>(qf, kf, vf, of, gf, lf, bf, df, dqf, B, H, Lq, Lk, D, scale, s);
+    case 64: return bwd_dq<64>(qf, kf, vf, of, gf, lf, bf, df, dqf, B, H, Lq, Lk, D, scale, s);
+    case 80: return bwd_dq<80>(qf, kf, vf, of, gf, lf, bf, df, dqf, B, H, Lq, Lk, D, scale, s);
+    default: return bwd_dq<160>(qf, kf, vf, of, gf, lf, bf, df, dqf, B, H, Lq, Lk, D, scale, s);
+  }
 }
 
 // dk, dv like k; dbias (B, H, Lk) f32 or null (per head, the caller sums
@@ -621,11 +918,28 @@ extern "C" int mvldm_f32_flash_bwd_dkv(const void* q, const void* k, const void*
   auto* dkf = static_cast<float*>(dk);
   auto* dvf = static_cast<float*>(dv);
   auto* dbf = static_cast<float*>(dbias);
-  if (D <= 64)
-    return bwd_dkv<2>(qf, kf, vf, gf, lf, df, bf, dkf, dvf, dbf, B, H, Lq, Lk, D, scale, s);
-  if (D <= 96)
-    return bwd_dkv<3>(qf, kf, vf, gf, lf, df, bf, dkf, dvf, dbf, B, H, Lq, Lk, D, scale, s);
-  return bwd_dkv<5>(qf, kf, vf, gf, lf, df, bf, dkf, dvf, dbf, B, H, Lq, Lk, D, scale, s);
+  switch (bwd_dn(D)) {
+    case 16:
+      return bwd_dkv<16>(qf, kf, vf, gf, lf, df, bf, dkf, dvf, dbf, B, H, Lq, Lk, D, scale, s);
+    case 40:
+      return bwd_dkv<40>(qf, kf, vf, gf, lf, df, bf, dkf, dvf, dbf, B, H, Lq, Lk, D, scale, s);
+    case 64:
+      return bwd_dkv<64>(qf, kf, vf, gf, lf, df, bf, dkf, dvf, dbf, B, H, Lq, Lk, D, scale, s);
+    case 80:
+      return bwd_dkv<80>(qf, kf, vf, gf, lf, df, bf, dkf, dvf, dbf, B, H, Lq, Lk, D, scale, s);
+    default:
+      return bwd_dkv<160>(qf, kf, vf, gf, lf, df, bf, dkf, dvf, dbf, B, H, Lq, Lk, D, scale, s);
+  }
+}
+
+// The dynamic shared memory of the two backward kernels' instance for head
+// dim D (bytes), or cudaErrorInvalidValue.
+extern "C" int mvldm_f32_flash_bwd_smem(int D, int* dq_smem, int* dkv_smem) {
+  if (D <= 0 || D % 4 || D > 160) return (int)cudaErrorInvalidValue;
+  const int dn = bwd_dn(D);
+  *dq_smem = (int)dq_bytes(dn);
+  *dkv_smem = (int)dkv_bytes(dn);
+  return 0;
 }
 
 // x, y (M, C); gamma, beta (C,).

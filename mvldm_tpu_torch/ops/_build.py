@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -89,6 +90,70 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[float, str]]:
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return logs
+
+
+def kernel_name(mangled: str) -> str:
+    """A readable name of a mangled kernel entry: its function name and
+    integer template arguments, as ``flash_bwd_dq_f32<40>``."""
+    m = re.match(r"_ZN?(.*)", mangled)
+    rest, name = (m.group(1) if m else mangled), mangled
+    while True:  # the length-prefixed names of the nested scopes; the last is the function
+        m = re.match(r"(\d+)", rest)
+        if not m:
+            break
+        n = int(m.group(1))
+        name, rest = rest[len(m.group(1)):len(m.group(1)) + n], rest[len(m.group(1)) + n:]
+    args = re.match(r"I((?:Li\d+E)+)E", rest)
+    if args:
+        name += "<" + ", ".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
+    return name
+
+
+def ptxas_report(log: str) -> List[dict]:
+    """Each kernel entry of an ``nvcc -Xptxas=-v`` log: its name
+    (:func:`kernel_name`), registers, spill store and load bytes and static
+    shared memory."""
+    out: List[dict] = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            out.append(dict(kernel=kernel_name(m.group(1)), registers=None, spill_stores=0,
+                            spill_loads=0, static_smem=0))
+            continue
+        if not out:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[-1].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[-1]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[-1]["static_smem"] = int(m.group(1)) if m else 0
+    return out
+
+
+def sass_report(name: str, ops: Sequence[str] = ("HGMMA", "HMMA")) -> Dict[str, dict]:
+    """{kernel: {op: count, "HGMMA forms": [...]}} over the built library of
+    ``csrc/<name>.cu`` by ``cuobjdump -sass`` (beside nvcc)."""
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_lib_path(name))], capture_output=True,
+                          text=True, check=True).stdout
+    out: Dict[str, dict] = {}
+    cur = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = out.setdefault(kernel_name(line.split("Function :")[1].strip()),
+                                 {op: 0 for op in ops})
+            cur["HGMMA forms"] = []
+        elif cur is not None:
+            for op in ops:
+                if re.search(rf"\b{op}\.", line):
+                    cur[op] += 1
+            m = re.search(r"\bHGMMA\.(\S+)", line)
+            if m and m.group(1) not in cur["HGMMA forms"]:
+                cur["HGMMA forms"].append(m.group(1))
+    return out
 
 
 def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:

@@ -4,9 +4,11 @@ The JAX package runs its Pallas kernels in f32 too, and f32 is its default
 precision (``trainer.precision: null``). The bf16 kernels take bf16 only, so
 the dispatchers (``attention``, ``fused_ln_self_attention``,
 ``fused_ln_geglu_ff`` and their autograd Functions) hand f32 tensors on the
-card to the wrappers here, which launch the hand-written FFMA kernels of
-``csrc/f32_route.cu``; bf16 goes to the bf16 kernels as before. The choice
-is by dtype, made before any launch; nothing is caught to fall back.
+card to the wrappers here, which launch the hand-written kernels of
+``csrc/f32_route.cu`` (the backward on the tensor cores as split TF32,
+three TF32 products for each f32 one; the rest FFMA); bf16 goes to the
+bf16 kernels as before. The choice is by dtype, made before any launch;
+nothing is caught to fall back.
 
 * :func:`flash_attention_f32` — forward, optional f32 lse; head dims up to
   512, multiples of 4.
@@ -36,6 +38,7 @@ _SIGNATURES = {
     "mvldm_f32_flash_fwd": [_P] * 6 + [_I] * 5 + [_F, _P],
     "mvldm_f32_flash_bwd_dq": [_P] * 9 + [_I] * 5 + [_F, _P],
     "mvldm_f32_flash_bwd_dkv": [_P] * 10 + [_I] * 5 + [_F, _P],
+    "mvldm_f32_flash_bwd_smem": [_I, _P, _P],
     "mvldm_f32_layer_norm": [_P] * 4 + [_I] * 2 + [_F, _P],
     "mvldm_f32_gemm": [_P] * 5 + [_I] * 7 + [_P],
     "mvldm_f32_geglu": [_P] * 2 + [ctypes.c_longlong, _I, _P],
@@ -104,6 +107,49 @@ def flash_attention_f32(q, k, v, bias=None, scale=None, return_lse: bool = False
     return (out, lse) if return_lse else out
 
 
+def _launch_bwd_dq(lib, q, k, v, out, lse, g, bias, dq, delta, scale: float) -> None:
+    """The dQ kernel of ``lib`` (a build of ``csrc/f32_route.cu``) on
+    checked inputs, writing ``dq`` and ``delta``."""
+    b, h, lq, d = q.shape
+    _build.check(lib.mvldm_f32_flash_bwd_dq(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out), _build.ptr(g),
+        _build.ptr(lse), _optr(bias), _build.ptr(delta), _build.ptr(dq), b, h, lq, k.shape[2],
+        d, float(scale), _build.stream_ptr(q.device)), f"mvldm_f32_flash_bwd_dq (head dim {d})")
+
+
+def _launch_bwd_dkv(lib, q, k, v, g, lse, delta, bias, dk, dv, dbias, scale: float) -> None:
+    """The dK/dV kernel of ``lib`` on checked inputs and the dQ kernel's
+    ``delta``, writing ``dk``, ``dv`` and (if not None) the per-head
+    ``dbias``."""
+    b, h, lq, d = q.shape
+    _build.check(lib.mvldm_f32_flash_bwd_dkv(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(g), _build.ptr(lse),
+        _build.ptr(delta), _optr(bias), _build.ptr(dk), _build.ptr(dv), _optr(dbias),
+        b, h, lq, k.shape[2], d, float(scale), _build.stream_ptr(q.device)),
+        f"mvldm_f32_flash_bwd_dkv (head dim {d})")
+
+
+def _launch_bwd(lib, q, k, v, bias, out, lse, g, scale: float, need_dbias: bool):
+    """Both backward kernels of ``lib`` on checked inputs: (dq, dk, dv,
+    dbias), dbias per head (B, H, Lk) or None."""
+    dq, delta = torch.empty_like(q), torch.empty_like(lse)
+    _launch_bwd_dq(lib, q, k, v, out, lse, g, bias, dq, delta, scale)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dbias = (torch.empty(k.shape[:3], dtype=torch.float32, device=q.device)
+             if bias is not None and need_dbias else None)
+    _launch_bwd_dkv(lib, q, k, v, g, lse, delta, bias, dk, dv, dbias, scale)
+    return dq, dk, dv, dbias
+
+
+def bwd_smem_bytes(d: int) -> dict:
+    """The dynamic shared memory (bytes) of the backward kernels' instance
+    for head dim ``d``: {"dq": ..., "dkv": ...} (builds the library)."""
+    dq, dkv = ctypes.c_int(), ctypes.c_int()
+    _build.check(_lib().mvldm_f32_flash_bwd_smem(d, ctypes.byref(dq), ctypes.byref(dkv)),
+                 f"mvldm_f32_flash_bwd_smem (head dim {d})")
+    return {"dq": dq.value, "dkv": dkv.value}
+
+
 def flash_attention_bwd_f32(q, k, v, bias, out, lse, g, scale=None, need_dbias: bool = True):
     """Both backward kernels in f32: (dq, dk, dv, dbias), dbias (B, Lk)
     summed over heads (None without a bias or when not asked for)."""
@@ -112,23 +158,8 @@ def flash_attention_bwd_f32(q, k, v, bias, out, lse, g, scale=None, need_dbias: 
     _check(what, q, out=out, lse=lse, g=g)
     if out.shape != q.shape or g.shape != q.shape or lse.shape != q.shape[:3]:
         raise ValueError(f"{what}: out / g must be like q and lse (B, H, Lq)")
-    b, h, lq, d = q.shape
-    lk = k.shape[2]
-    scale = _scale(q, scale)
-    lib, stream = _lib(), _build.stream_ptr(q.device)
-    dq = torch.empty_like(q)
-    delta = torch.empty_like(lse)
-    _build.check(lib.mvldm_f32_flash_bwd_dq(
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out), _build.ptr(g),
-        _build.ptr(lse), _optr(bias), _build.ptr(delta), _build.ptr(dq), b, h, lq, lk, d,
-        float(scale), stream), f"mvldm_f32_flash_bwd_dq (head dim {d})")
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    dbias = (torch.empty((b, h, lk), dtype=torch.float32, device=q.device)
-             if bias is not None and need_dbias else None)
-    _build.check(lib.mvldm_f32_flash_bwd_dkv(
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(g), _build.ptr(lse),
-        _build.ptr(delta), _optr(bias), _build.ptr(dk), _build.ptr(dv), _optr(dbias),
-        b, h, lq, lk, d, float(scale), stream), f"mvldm_f32_flash_bwd_dkv (head dim {d})")
+    dq, dk, dv, dbias = _launch_bwd(_lib(), q, k, v, bias, out, lse, g, _scale(q, scale),
+                                    need_dbias)
     flash_attention_bwd_f32.launches += 1
     return dq, dk, dv, None if dbias is None else dbias.sum(dim=1)
 

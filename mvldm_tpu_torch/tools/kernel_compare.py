@@ -2,7 +2,7 @@
 in turns, on one NVIDIA GPU.
 
     python -m mvldm_tpu_torch.tools.kernel_compare --other DIR
-        [--kernel bwd|fwd|gemm|micro] [--rounds N] [--only TEXT]
+        [--kernel bwd|fwd|gemm|micro|f32bwd] [--rounds N] [--only TEXT]
 
 DIR is another checkout of this repository, for example the parent commit
 unpacked with ``git archive`` into an ignored directory such as
@@ -31,7 +31,12 @@ replay). One JSON line per shape and launch, then the card as
 * ``micro``: the microbenchmark's attention probes (``micro_attn.cu``),
   the f32-dot flash and fullk in its modes, at every such case of the TPU
   tool's sections (:data:`MICRO_CASES`), SDPA (for the f32-dot flash also
-  SDPA on f32 copies), the route's bound and the exp floor beside them.
+  SDPA on f32 copies), the route's bound and the exp floor beside them;
+* ``f32bwd``: the f32 route's backward (``f32_route.cu``, dQ and dK/dV in
+  f32) at every attention shape of a training step (:data:`F32_BWD_SHAPES`),
+  each build held within relative L2 of the plain backward in f32 (TF32
+  off), SDPA's f32 backward and its backend, the 3xTF32 and FFMA bounds
+  beside it.
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ import torch.nn.functional as F
 
 from ..ops import _build
 from ..ops import attention as attn
-from ..ops import fused_attn, fused_ff
+from ..ops import f32_route, fused_attn, fused_ff
 from . import bench_attn_micro as micro
 from . import measure
 
@@ -112,12 +117,20 @@ MICRO_CASES = [
     ("fullk max 80x8x1024x40", "fullk", dict(b=80, h=8, l=1024, d=40, do_max=True)),
 ]
 
+# The f32 UNet (the configs' default precision) runs the same attentions in
+# a training step, through the f32 route.
+F32_BWD_SHAPES = TRAIN_SHAPES
+
 SOURCES = {"bwd": ("flash_attn_bwd",), "fwd": ("flash_attn_fwd",),
            "gemm": ("fused_ln_attn", "fused_ln_geglu_ff", "micro_matmul"),
-           "micro": ("micro_attn",)}
+           "micro": ("micro_attn",), "f32bwd": ("f32_route",)}
 SIGNATURES = {"flash_attn_bwd": attn._BWD_SIGNATURES, "flash_attn_fwd": attn._FWD_SIGNATURES,
               "fused_ln_attn": fused_attn._SIGNATURES, "fused_ln_geglu_ff": fused_ff._SIGNATURES,
-              "micro_matmul": micro._MATMUL_SIG, "micro_attn": micro._ATTN_SIG}
+              "micro_matmul": micro._MATMUL_SIG, "micro_attn": micro._ATTN_SIG,
+              "f32_route": f32_route._SIGNATURES}
+# The entries the comparison calls in another checkout's build, where that
+# source holds entries this tree added since (f32_route.cu's smem query).
+OTHER_ENTRIES = {"f32_route": ("mvldm_f32_flash_bwd_dq", "mvldm_f32_flash_bwd_dkv")}
 
 
 def attn_inputs(gen, b, h, l, d, with_bias):
@@ -157,7 +170,13 @@ def build_other(checkout: Path, names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc {name}.cu of {checkout} failed:\n{log}")
-    return {n: _build.open_lib(out_dir / f"lib{n}_other.so", SIGNATURES[n]) for n in names}
+    return {n: _build.open_lib(out_dir / f"lib{n}_other.so", other_signatures(n)) for n in names}
+
+
+def other_signatures(name: str) -> Dict[str, list]:
+    """The C entries of ``name`` declared in another checkout's build."""
+    keep = OTHER_ENTRIES.get(name, SIGNATURES[name])
+    return {fn: args for fn, args in SIGNATURES[name].items() if fn in keep}
 
 
 def load_libs(kernel: str, other: Path) -> Dict[str, Dict[str, ctypes.CDLL]]:
@@ -242,6 +261,87 @@ def compare_bwd(libs, args, card: str) -> None:
             rec[name] = dict(dq_ms=dq_ms, dkv_ms=dkv_ms, bwd_ms=dq_ms + dkv_ms,
                              err_over_rms=errs[name], turns=[list(t) for t in ts])
         rec["this_over_other"] = rec["this"]["bwd_ms"] / rec["other"]["bwd_ms"]
+        print(json.dumps(rec), flush=True)
+        del q, k, v, g, bias, out, lse
+        torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------- f32bwd
+
+def f32_train_inputs(gen, b, h, l, d, with_bias):
+    """:func:`train_inputs` as f32 copies (the bias is f32 already)."""
+    q, k, v, g, bias = train_inputs(gen, b, h, l, d, with_bias)
+    return q.float(), k.float(), v.float(), g.float(), bias
+
+
+def rel_l2(got, want) -> float:
+    """Relative L2 of ``got`` against ``want``, in float64."""
+    return (torch.linalg.norm(got.double() - want.double())
+            / torch.linalg.norm(want.double())).item()
+
+
+def sdpa_f32_bwd(q, k, v, bias, g, iters: int) -> dict:
+    """SDPA's backward on these f32 inputs, TF32 off: its time
+    (:func:`measure.sdpa_bwd_ms`) and the backend it ran."""
+    mask = None if bias is None else bias[:, None, None, :]
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+        return torch.autograd.grad(out, (qg, kg, vg), g)
+
+    with measure.no_tf32():
+        return dict(sdpa_f32_bwd_ms=measure.sdpa_bwd_ms(q, k, v, bias, g, iters),
+                    sdpa_f32_bwd_backend=measure.sdpa_backend(fwd_bwd))
+
+
+def time_f32_kernels(lib, q, k, v, bias, out, lse, g, iters):
+    """(dQ ms, dK/dV ms) of ``lib``'s f32 backward by graph replay."""
+    scale = attn._scale(q, None)
+    dq, delta = torch.empty_like(q), torch.empty_like(lse)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dbias = None if bias is None else torch.empty(k.shape[:3], device=q.device)
+    dq_ms = measure.time_ms(lambda: f32_route._launch_bwd_dq(
+        lib, q, k, v, out, lse, g, bias, dq, delta, scale), iters)
+    dkv_ms = measure.time_ms(lambda: f32_route._launch_bwd_dkv(
+        lib, q, k, v, g, lse, delta, bias, dk, dv, dbias, scale), iters)
+    return dq_ms, dkv_ms
+
+
+def compare_f32bwd(libs, args, card: str) -> None:
+    libs = {name: ls["f32_route"] for name, ls in libs.items()}
+    gen = torch.Generator("cuda").manual_seed(0)
+    for label, b, h, l, d, with_bias in F32_BWD_SHAPES:
+        if args.only and not any(text in label for text in args.only):
+            continue
+        q, k, v, g, bias = f32_train_inputs(gen, b, h, l, d, with_bias)
+        out, lse = f32_route.flash_attention_f32(q, k, v, bias, return_lse=True)
+        scale = attn._scale(q, None)
+        with measure.no_tf32():
+            ref = attn.attention_bwd_reference(q, k, v, bias, g)
+        errs = {}
+        for name, lib in libs.items():
+            got = f32_route._launch_bwd(lib, q, k, v, bias, out, lse, g, scale, True)
+            got = (*got[:3], None if got[3] is None else got[3].sum(1))
+            errs[name] = {n: rel_l2(x, r) for n, x, r in zip(("dq", "dk", "dv", "dbias"), got, ref)
+                          if r is not None}
+        del ref
+        iters = 5 if l >= 1024 else 50
+        times = {name: [] for name in libs}
+        for _ in range(args.rounds):
+            for name in ("this", "other", "other", "this"):
+                times[name].append(time_f32_kernels(libs[name], q, k, v, bias, out, lse, g,
+                                                    iters))
+        moved = measure.nbytes(q, k, v, out, g, lse, bias, *got)
+        rec = dict(kernel="f32bwd", shape=label, B=b, H=h, L=l, D=d, bias=with_bias,
+                   **measure.f32_bwd_bounds(b, h, l, l, d, moved),
+                   **sdpa_f32_bwd(q, k, v, bias, g, iters), card=card)
+        for name, ts in times.items():
+            dq_ms, dkv_ms = _mean([t[0] for t in ts]), _mean([t[1] for t in ts])
+            rec[name] = dict(ms=dq_ms + dkv_ms, dq_ms=dq_ms, dkv_ms=dkv_ms, rel_l2=errs[name],
+                             turns=[list(t) for t in ts])
+        rec["this_over_other"] = rec["this"]["ms"] / rec["other"]["ms"]
+        rec["this_over_sdpa"] = rec["this"]["ms"] / rec["sdpa_f32_bwd_ms"]
         print(json.dumps(rec), flush=True)
         del q, k, v, g, bias, out, lse
         torch.cuda.empty_cache()
@@ -526,7 +626,7 @@ def main(argv=None) -> int:
     card = measure.card_line()
     libs = load_libs(args.kernel, args.other)
     {"bwd": compare_bwd, "fwd": compare_fwd, "gemm": compare_gemm,
-     "micro": compare_micro}[args.kernel](libs, args, card)
+     "micro": compare_micro, "f32bwd": compare_f32bwd}[args.kernel](libs, args, card)
     print(card, flush=True)
     return 0
 

@@ -17,6 +17,7 @@ import torch
 
 PEAK_BF16_FLOPS = 989e12  # bf16 tensor cores (mma / wgmma)
 PEAK_FP32_FLOPS = 67e12   # f32 FFMA outside the tensor cores
+PEAK_TF32_FLOPS = 494.7e12  # TF32 tensor cores (wgmma); an f32 product as split TF32 takes three
 PEAK_BYTES = 3.35e12      # HBM3
 EXP2_PER_CLOCK_PER_SM = 16  # MUFU ex2 (CUDA arithmetic-throughput table, sm_90)
 TARGET_MS = 50.0  # device time a replay of an unsized timing fills
@@ -185,3 +186,15 @@ def bound(flops: float, moved: int, peak_flops: float = PEAK_BF16_FLOPS
     ("operations" or "bytes")."""
     t_ops, t_bytes = flops / peak_flops * 1e3, moved / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def f32_bwd_bounds(b: int, h: int, lq: int, lk: int, d: int, moved: int) -> dict:
+    """Bounds of the f32 attention backward (dQ, dK, dV: five L x L x D
+    products) on (B, H, Lq, Lk, D) moving ``moved`` bytes: ``bound_ms`` /
+    ``bound_by`` for products with f32 accuracy on the tensor cores (three
+    TF32 products for each, at PEAK_TF32_FLOPS), and ``ffma_bound_ms`` for
+    the same products on FFMA (PEAK_FP32_FLOPS)."""
+    flops = 10.0 * b * h * lq * lk * d
+    bound_ms, bound_by = bound(3 * flops, moved, PEAK_TF32_FLOPS)
+    return dict(bound_ms=bound_ms, bound_by=bound_by,
+                ffma_bound_ms=bound(flops, moved, PEAK_FP32_FLOPS)[0])

@@ -7,10 +7,10 @@ import torch
 
 from mvldm_tpu_torch.ops import fused_attn
 from mvldm_tpu_torch.tools import bench_attn_micro as micro
-from mvldm_tpu_torch.tools import kernel_compare
+from mvldm_tpu_torch.tools import kernel_compare, measure
 
 
-@pytest.mark.parametrize("kernel", ["bwd", "fwd", "gemm", "micro"])
+@pytest.mark.parametrize("kernel", ["bwd", "fwd", "gemm", "micro", "f32bwd"])
 def test_compare_tool_needs_a_card(capsys, kernel):
     """Every --kernel exits non-zero, with no result line, without a card."""
     assert kernel_compare.main(["--other", ".", "--kernel", kernel]) == 2
@@ -94,3 +94,44 @@ def test_micro_cases_are_the_tool_sections_f32_flash_and_fullk():
     assert all(c in plan for c in cases)
     assert ("fullk", dict(b=16, h=8, l=5120, d=40, do_max="none")) in cases
     assert len(cases) == 9 and kernel_compare.SOURCES["micro"] == ("micro_attn",)
+
+
+def test_f32bwd_shapes_are_the_training_shapes():
+    """The f32 backward comparison runs every attention of a training step,
+    which the f32 UNet runs through the f32 route, on f32_route.cu."""
+    assert kernel_compare.F32_BWD_SHAPES == kernel_compare.TRAIN_SHAPES
+    assert kernel_compare.SOURCES["f32bwd"] == ("f32_route",)
+    assert set(kernel_compare.SIGNATURES["f32_route"]) >= {"mvldm_f32_flash_bwd_dq",
+                                                            "mvldm_f32_flash_bwd_dkv"}
+    # another checkout's f32_route.cu is declared with the two entries the
+    # comparison calls (an older one has no shared-memory query)
+    assert set(kernel_compare.other_signatures("f32_route")) == {"mvldm_f32_flash_bwd_dq",
+                                                                  "mvldm_f32_flash_bwd_dkv"}
+    assert kernel_compare.other_signatures("flash_attn_bwd") == kernel_compare.SIGNATURES[
+        "flash_attn_bwd"]
+
+
+def test_f32_bwd_bounds_at_the_joint_shape():
+    """At the joint 32x32 shape (B=2, H=8, L=5120, D=40) the five products
+    take 1.678e11 flop: three TF32 products each at 494.7 TFLOP/s is
+    1.017 ms, FFMA at 67 TFLOP/s 2.504 ms; both above the bytes."""
+    b, h, l, d = 2, 8, 5120, 40
+    moved = 4 * (b * h * l * d * 8 + b * h * l + 2 * b * l)
+    got = measure.f32_bwd_bounds(b, h, l, l, d, moved)
+    assert got["bound_by"] == "operations"
+    assert got["bound_ms"] == pytest.approx(1.0174, abs=1e-4)
+    assert got["ffma_bound_ms"] == pytest.approx(2.5041, abs=1e-4)
+    assert measure.PEAK_TF32_FLOPS == 494.7e12
+
+
+@pytest.mark.parametrize("b,h,l,d", [(2, 8, 1280, 80), (2, 8, 320, 160), (10, 5, 16, 64)])
+def test_f32_bwd_bounds_scale_with_the_work(b, h, l, d):
+    """The 3xTF32 bound is the FFMA bound times 3 x 67 / 494.7 where the
+    products bound both, and the bytes where they outweigh them."""
+    moved = 4 * (b * h * l * d * 8 + b * h * l + 2 * b * l)
+    got = measure.f32_bwd_bounds(b, h, l, l, d, moved)
+    bytes_ms = moved / measure.PEAK_BYTES * 1e3
+    ops_ms = 30.0 * b * h * l * l * d / measure.PEAK_TF32_FLOPS * 1e3
+    assert got["bound_ms"] == pytest.approx(max(ops_ms, bytes_ms))
+    assert got["bound_by"] == ("operations" if ops_ms >= bytes_ms else "bytes")
+    assert got["ffma_bound_ms"] >= got["bound_ms"]

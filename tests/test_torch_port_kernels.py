@@ -592,7 +592,9 @@ def _f32_bias(gen, b, lk, device):
 
 F32_ATTN_SHAPES = [
     # (b, h, lq, lk, d, bias): L = 1; one ragged tile; Lq != Lk both ways;
-    # every head dim of the model (8 and 16: the tiny topology) and the VAE's 512
+    # every head dim of the model (8 and 16: the tiny topology) and the VAE's 512;
+    # head dims that are not multiples of 8 (12, 44: the backward pads them),
+    # with Lq and Lk past whole tiles on both sides
     (1, 2, 1, 1, 8, False),
     (2, 3, 16, 16, 16, True),
     (1, 2, 100, 300, 40, True),
@@ -600,6 +602,17 @@ F32_ATTN_SHAPES = [
     (1, 2, 77, 200, 80, True),
     (1, 2, 64, 190, 160, True),
     (1, 1, 130, 130, 512, False),
+    (2, 3, 90, 150, 12, False),
+    (1, 2, 130, 77, 44, True),
+    (1, 2, 270, 300, 160, True),
+]
+
+# The main path's joint attentions (32x32, 16x16 and 8x8 latents over 5
+# views) at batch 1: the long sums over 5120, 1280 and 320 keys and queries.
+F32_JOINT_SHAPES = [
+    (1, 8, 5120, 5120, 40, True),
+    (1, 8, 1280, 1280, 80, True),
+    (1, 8, 320, 320, 160, True),
 ]
 
 
@@ -618,7 +631,7 @@ def test_f32_flash_forward(cuda, b, h, lq, lk, d, with_bias):
 
 
 @pytest.mark.parametrize("b,h,lq,lk,d,with_bias",
-                         [s for s in F32_ATTN_SHAPES if s[4] <= 160])
+                         [s for s in F32_ATTN_SHAPES if s[4] <= 160] + F32_JOINT_SHAPES)
 def test_f32_flash_backward(cuda, b, h, lq, lk, d, with_bias):
     gen = torch.Generator().manual_seed(d + 2 * lq + lk)
     q, k, v = (_f32(gen, b, h, n, d, device=cuda) for n in (lq, lk, lk))
@@ -635,6 +648,24 @@ def test_f32_flash_backward(cuda, b, h, lq, lk, d, with_bias):
         assert (x is None) == (y is None), name
         if y is not None:
             _assert_f32_close(x, y, scale=dv_norm if name in ("dq", "dk") else None)
+
+
+@pytest.mark.parametrize("d", [12, 40, 80, 160])
+def test_f32_flash_backward_without_dbias(cuda, d):
+    """need_dbias=False: no bias gradient, the same dq, dk and dv."""
+    gen = torch.Generator().manual_seed(d)
+    q, k, v = (_f32(gen, 2, 2, n, d, device=cuda) for n in (70, 130, 130))
+    g = _f32(gen, 2, 2, 70, d, device=cuda)
+    bias = _f32_bias(gen, 2, 130, cuda)
+    out, lse = flash_attention_f32(q, k, v, bias, return_lse=True)
+    got = flash_attention_bwd_f32(q, k, v, bias, out, lse, g, need_dbias=False)
+    with_db = flash_attention_bwd_f32(q, k, v, bias, out, lse, g)
+    torch.cuda.synchronize()
+    assert got[3] is None and with_db[3] is not None
+    want = attention_bwd_reference(q, k, v, bias, g)
+    for x, y, z in zip(got[:3], with_db[:3], want[:3]):
+        assert torch.equal(x, y)
+        _assert_f32_close(x, z)
 
 
 def _f32_linear_t(gen, rows, cols, device):
