@@ -7,8 +7,9 @@ Phases, each fatal on failure (non-zero exit, no final result line):
 1. device and build: the card's name and power limit; the CUDA kernels are
    compiled from mvldm_tpu_torch/csrc with nvcc (one process per source,
    all started together), with ptxas's registers and spills for every
-   kernel; the f32 route's backward instances must show HGMMA on TF32
-   operands, and no HMMA, in the library's SASS (cuobjdump).
+   kernel; the f32 route's split-TF32 instances (the forward's nine and
+   the backward's ten) must show HGMMA on TF32 operands, and no HMMA, in
+   the library's SASS (cuobjdump).
 2. one phase per kernel of sampling and training at the main paths'
    shapes: the kernel against its plain PyTorch version computed in f32 on
    the same bf16 inputs (see ``check``), device times of both (CUDA graph
@@ -52,11 +53,14 @@ Phases, each fatal on failure (non-zero exit, no final result line):
    the host CPU in f32 with the plain versions.
 7. the f32 route (mvldm_tpu_torch.ops.f32_route, csrc/f32_route.cu): each
    of its four wrappers at the f32 UNet's shapes against its plain version
-   in f32 (relative L2 within F32_KERNEL_REL_L2), with device times, the
-   bound at FP32 FFMA 67 TFLOP/s and SDPA in f32; the backward (split TF32
-   on wgmma) at the joint 32x32, 16x16 and 8x8 shapes, with SDPA's f32
-   backward and its backend, the bound at three TF32 products for each f32
-   one (494.7 TFLOP/s) and the FFMA bound beside it; then the seeded flagship built in f32 on the card runs the
+   in f32 (relative L2 within F32_KERNEL_REL_L2), with device times; the
+   forward (split TF32 on wgmma up to D = 160, FFMA at the VAE's 512), out
+   and lse, at every sampling shape, with SDPA in f32 and its backend, the
+   bound at three TF32 products for each f32 one (494.7 TFLOP/s), the FFMA
+   bound beside it and the instance's shared memory; the backward (split
+   TF32) at the joint 32x32, 16x16 and 8x8 shapes, with SDPA's f32
+   backward and its backend and both bounds; the fused blocks bound at
+   FP32 FFMA 67 TFLOP/s; then the seeded flagship built in f32 on the card runs the
    UNet parity forward against the host's f32 output (F32_REL_L2_BOUND):
    every f32 forward kernel must launch and no bf16 kernel may.
 8. train-step parity: loss and UNet gradient of one training step at batch
@@ -374,18 +378,19 @@ def _f32_check(got, want, what: str) -> dict:
 
 def f32_kernels_phase(card: str, gen) -> dict:
     """The f32 route's four wrappers (csrc/f32_route.cu) at the f32 UNet's
-    shapes (the joint 32x32 attention with its CFG bias, and the C = 320
-    fused blocks, the widest that take the fused path in f32) against their
-    plain versions in f32, with device times, the bound or the bytes, and
-    the library call: SDPA in f32; the fused blocks have none (their
-    decomposed path beside them). The forward and the fused blocks run on
-    FFMA, bound at 67 TFLOP/s. The backward (split TF32 on the tensor
-    cores) runs at the joint 32x32, 16x16 and 8x8 shapes, one line each,
-    with SDPA's f32 backward and its backend, its bound at three TF32
-    products for each f32 one (494.7 TFLOP/s) and the FFMA bound beside it
-    (``ffma_bound_ms``); the kernels line takes the 32x32 one."""
-    import torch.nn.functional as F
-
+    shapes against their plain versions in f32, with device times, the
+    bound or the bytes, and the library call. The forward (split TF32 on
+    the tensor cores up to D = 160, FFMA at the VAE's 512) runs, out and
+    lse, at every sampling shape, one line each, with SDPA in f32 and its
+    backend, its bound at three TF32 products for each f32 one (494.7
+    TFLOP/s), the FFMA bound beside it (``ffma_bound_ms``) and the
+    instance's shared memory; the kernels line takes the joint 32x32 one.
+    The backward (split TF32) runs at the joint 32x32, 16x16 and 8x8
+    shapes, one line each, with SDPA's f32 backward and its backend and
+    both bounds; the kernels line takes the 32x32 one. The fused blocks
+    (C = 320, the widest that take the fused path in f32; FFMA GEMMs, bound
+    at 67 TFLOP/s) have no library call (their decomposed path beside
+    them)."""
     from mvldm_tpu_torch.ops.attention import (
         attention_bwd_reference,
         attention_reference,
@@ -397,6 +402,7 @@ def f32_kernels_phase(card: str, gen) -> dict:
         flash_attention_f32,
         fused_ln_geglu_ff_f32,
         fused_ln_self_attention_f32,
+        fwd_smem_bytes,
     )
     from mvldm_tpu_torch.ops.fused_attn import _attn_decomposed, fused_ln_self_attention_reference
     from mvldm_tpu_torch.ops.fused_ff import fused_ln_geglu_ff_reference, ln_geglu_ff_decomposed
@@ -408,33 +414,41 @@ def f32_kernels_phase(card: str, gen) -> dict:
         attn_block_inputs,
         f32_train_inputs,
         ff_block_inputs,
+        sdpa_f32,
         sdpa_f32_bwd,
     )
-    from mvldm_tpu_torch.tools.measure import PEAK_FP32_FLOPS, f32_bwd_bounds
+    from mvldm_tpu_torch.tools.measure import PEAK_FP32_FLOPS, f32_bwd_bounds, f32_fwd_bounds
 
     def f32(t):  # an f32 copy that keeps a transposed weight transposed
         return t.t().float().t() if t.dim() == 2 and not t.is_contiguous() else t.float()
 
     recs = {}
-    label, b, h, l, d, with_bias = SAMPLING_SHAPES[0]
-    q, k, v, g, bias = f32_train_inputs(gen, b, h, l, d, with_bias)
-    out, lse = flash_attention_f32(q, k, v, bias, return_lse=True)
-    ref, ref_lse = attention_reference_lse(q, k, v, bias)
-    acc = _f32_check(out, ref, f"flash_attention_f32 {label}")
-    acc["lse"] = _f32_check(lse, ref_lse, f"flash_attention_f32 lse {label}")
-    del ref, ref_lse
-    mask = bias[:, None, None, :]
-    recs["flash_attention_f32"] = dict(
-        shape=label, **acc, ms=time_ms(lambda: flash_attention_f32(q, k, v, bias)),
-        plain_ms=time_ms(lambda: attention_reference(q, k, v, bias), 3),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)),
-        **dict(zip(("bound_ms", "bound_by"), bound(
-            4.0 * b * h * l * l * d, nbytes(q, k, v, bias, out), PEAK_FP32_FLOPS))))
+    fwd = []
+    for label, b, h, l, d, with_bias in SAMPLING_SHAPES:
+        q, k, v, _, bias = f32_train_inputs(gen, b, h, l, d, with_bias)
+        out, lse = flash_attention_f32(q, k, v, bias, return_lse=True)
+        ref, ref_lse = attention_reference_lse(q, k, v, bias)
+        acc = _f32_check(out, ref, f"flash_attention_f32 {label}")
+        acc["lse"] = _f32_check(lse, ref_lse, f"flash_attention_f32 lse {label}")
+        del ref, ref_lse
+        iters = 10 if l >= 1024 else 50
+        rec = dict(shape=label, B=b, H=h, L=l, D=d, bias=with_bias, **acc,
+                   ms=time_ms(lambda: flash_attention_f32(q, k, v, bias), iters),
+                   plain_ms=time_ms(lambda: attention_reference(q, k, v, bias), 3),
+                   **sdpa_f32(q, k, v, bias, iters),
+                   **f32_fwd_bounds(b, h, l, l, d, nbytes(q, k, v, bias, out)),
+                   kernel_route="split TF32" if d <= 160 else "FFMA",
+                   smem_bytes=fwd_smem_bytes(l, d))
+        rec["library_ms"] = rec["sdpa_f32_ms"]
+        emit(phase="f32_fwd", kernel="flash_attention_f32", **rec, card=card)
+        fwd.append(rec)
+        del q, k, v, bias, out, lse
+        torch.cuda.empty_cache()
+    recs["flash_attention_f32"] = dict(fwd[0], max_abs_err=max(r["max_abs_err"] for r in fwd))
     bwd = []
-    for i, (label, b, h, l, d, with_bias) in enumerate(F32_BWD_SHAPES[:3]):
-        if i:  # the joint 32x32 shape's inputs are the forward's
-            q, k, v, g, bias = f32_train_inputs(gen, b, h, l, d, with_bias)
-            out, lse = flash_attention_f32(q, k, v, bias, return_lse=True)
+    for label, b, h, l, d, with_bias in F32_BWD_SHAPES[:3]:
+        q, k, v, g, bias = f32_train_inputs(gen, b, h, l, d, with_bias)
+        out, lse = flash_attention_f32(q, k, v, bias, return_lse=True)
         got = flash_attention_bwd_f32(q, k, v, bias, out, lse, g)
         want = attention_bwd_reference(q, k, v, bias, g)
         checks = {n: _f32_check(x, y, f"flash_attention_bwd_f32 {n} {label}")
@@ -986,19 +1000,30 @@ def train_profile_phase(card: str, state, step, batch, gen) -> None:
          "device events", wall_ms=wall_ms, **device_breakdown(prof, 1), card=card)
 
 
+# The f32 route's split-TF32 instances: the forward at D <= 160 (head-dim
+# instance, warpgroups a block) and both backward kernels (head-dim
+# instance).
+SPLIT_TF32_INSTANCES = (
+    [f"flash_fwd_tf32<{dn}, {wgs}>" for dn in (16, 40, 64, 80) for wgs in (1, 2)]
+    + ["flash_fwd_tf32<160, 1>"]
+    + [f"{name}<{dn}>" for name in ("flash_bwd_dq_f32", "flash_bwd_dkv_f32")
+       for dn in (16, 40, 64, 80, 160)])
+
+
 def sass_phase(card: str) -> None:
-    """The f32 route's backward instances in the built library's SASS
-    (cuobjdump): each must run its products as HGMMA on TF32 operands, and
-    none as HMMA."""
+    """The f32 route's split-TF32 instances in the built library's SASS
+    (cuobjdump): each must be there and run its products as HGMMA on TF32
+    operands, and none as HMMA."""
     from mvldm_tpu_torch.ops import _build
 
-    bwd = {k: v for k, v in _build.sass_report("f32_route").items()
-           if k.startswith(("flash_bwd_dq_f32", "flash_bwd_dkv_f32"))}
-    emit(phase="sass", source="mvldm_tpu_torch/csrc/f32_route.cu", kernels=bwd, card=card)
-    bad = [k for k, v in bwd.items()
+    found = {k: v for k, v in _build.sass_report("f32_route").items()
+             if k.startswith(("flash_fwd_tf32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32"))}
+    emit(phase="sass", source="mvldm_tpu_torch/csrc/f32_route.cu", kernels=found, card=card)
+    missing = [k for k in SPLIT_TF32_INSTANCES if k not in found]
+    bad = [k for k, v in found.items()
            if v["HMMA"] or not any(f.endswith("TF32") for f in v["HGMMA forms"])]
-    if not bwd or bad:
-        fail(f"f32 backward instances without TF32 HGMMA (or with HMMA): {bad or 'none found'}")
+    if missing or bad:
+        fail(f"split-TF32 instances missing {missing} or without TF32 HGMMA (or with HMMA) {bad}")
 
 
 def main() -> int:

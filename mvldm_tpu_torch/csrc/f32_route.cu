@@ -18,12 +18,15 @@
 // of the bf16 tensor rate; on the tensor cores as split TF32, three TF32
 // products for each f32 one at 494.7 TFLOP/s, 2.5x the FFMA rate. The L x L
 // scores never reach device memory.
-//   * backward (dQ, dK / dV / dbias): split TF32 on wgmma, see "backward"
-//     below: warpgroups of 64 rows, the resident operand's hi / lo tiles
-//     loaded once, the streamed tiles split on their way into shared
-//     memory and also stored transposed where wgmma needs them K-major, P
-//     and dS split in registers, no atomics.
-//   * forward: FFMA, the simple design that is right first: blocks of 8
+//   * forward at head dims up to 160, and the backward (dQ, dK / dV /
+//     dbias): split TF32 on wgmma, see "forward" and "backward" below:
+//     warpgroups of 64 rows, the resident operand's hi / lo tiles loaded
+//     once, the streamed tiles split on their way into shared memory and
+//     stored transposed where wgmma needs them K-major (V for O += P V),
+//     P and dS split in registers, no atomics.
+//   * forward at head dims 161-512 (the VAE's 512): FFMA, as no split
+//     design fits there (a 64-row Q as hi / lo takes 256 KB of shared
+//     memory, a 64 x 512 O 256 registers a thread): blocks of 8
 //     warps, each warp 4 rows (32 rows a block, the
 //     resident operand in shared memory); 32-row tiles of the streamed
 //     operand through shared memory, padded to D + 4 floats a row where a
@@ -34,7 +37,7 @@
 //     while each lane accumulates columns lane, lane + 32, ...: ~1 shared
 //     memory read for every 2 to 3 FMAs. The online softmax in f32 with
 //     expf and warp shuffles. Keys past the end are zero rows
-//     with p = 0. Head dims multiples of 4, up to 512.
+//     with p = 0.
 //   * GEMM: out = A W^T with W a torch Linear weight (N, K) row-major, the
 //     micro_matmul.cu FFMA tile (128 x 128 outputs a block of 256 threads,
 //     8 x 8 a thread, both operands staged k-major, the next 8-deep step
@@ -43,11 +46,12 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "attn_tile.cuh"    // quad_sum
+#include "attn_tile.cuh"    // quad_max, quad_sum
 #include "hopper_tile.cuh"  // split tf32, wgmma, descriptors
 
 namespace {
 
+using attn_tile::quad_max;
 using attn_tile::quad_sum;
 using namespace hopper_tile;
 
@@ -122,7 +126,7 @@ __device__ __forceinline__ void accumulate(float (*acc)[NC], const float* w, con
   }
 }
 
-// ------------------------------------------------------------- forward
+// ------------------------------------------------- forward on FFMA (D > 160)
 
 // out = softmax(scale q k^T + bias) v; lse = the row log-sum-exp of the
 // scaled, biased logits (natural log). NC: columns a lane owns, D <= 32 NC.
@@ -132,7 +136,7 @@ __global__ void __launch_bounds__(kAttnThreads)
                   const float* __restrict__ v, const float* __restrict__ bias,
                   float* __restrict__ out, float* __restrict__ lse, int H, int Lq, int Lk,
                   int D, float scale) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(128) float smem[];
   const int KP = lane_pitch(D);
   float* Qs = smem;                       // kRows x D
   float* Ks = Qs + kRows * D;             // kTileKeys x KP
@@ -198,23 +202,32 @@ __global__ void __launch_bounds__(kAttnThreads)
   }
 }
 
-// ------------------------------------------------------------ backward
+// -------------------------------------------------------- split TF32
 //
-// On the tensor cores as split TF32 (hopper_tile.cuh): every product of an
-// f32 tile pair runs as three tf32 wgmma (hi hi, hi lo, lo hi). Blocks of
-// one or two warpgroups, each owning 64 rows; the resident operand's hi
-// and lo tiles are loaded once. The streamed tiles go global -> registers
-// (16-byte loads, issued before the products of the tile in use) -> split
-// -> shared memory, stored both as they lie (K-major operand of S and dP)
-// and transposed (the K-major operand of dQ = dS K, dV = P^T dO and dK =
-// dS^T Q, which wgmma cannot read MN-major in tf32). P and dS stay in
-// registers and go in as A fragments, split there.
+// The forward (D <= 160) and the backward on the tensor cores as split TF32
+// (hopper_tile.cuh): every product of an f32 tile pair runs as three tf32
+// wgmma (hi hi, hi lo, lo hi). Blocks of one or two warpgroups, each owning
+// 64 rows; the resident operand's hi and lo tiles are loaded once. The
+// streamed tiles go global -> registers (16-byte loads, issued before the
+// products of the tile in use) -> split -> shared memory, stored as they
+// lie (K-major operand of S and dP) and, where a product contracts over
+// their rows, transposed (the K-major operand of O = P V, dQ = dS K, dV =
+// P^T dO and dK = dS^T Q, which wgmma cannot read MN-major in tf32). P and
+// dS stay in registers and go in as A fragments, split there.
 
 // Head-dim instances (DN >= D, columns past D zero) and their tiles:
 // warpgroups a block, streamed rows a stage and stages, as shared memory
 // allows (a split f32 tile takes four times a bf16 one).
-__host__ __device__ constexpr int bwd_dn(int D) {
+__host__ __device__ constexpr int split_dn(int D) {
   return D <= 16 ? 16 : D <= 40 ? 40 : D <= 64 ? 64 : D <= 80 ? 80 : 160;
+}
+// The forward: two warpgroups a block up to D = 80 where more than 64 queries
+// share the keys, else one (a block of 64 rows; two such blocks fit an SM
+// at D <= 80); three stages where they fit, as the products of a tile
+// overlap the next tile's (see flash_fwd_tf32).
+__host__ __device__ constexpr int fwd_wgs(int DN, int Lq) { return DN <= 80 && Lq > 64 ? 2 : 1; }
+__host__ __device__ constexpr int fwd_bc(int DN, int WGS) {
+  return WGS == 2 ? (DN <= 64 ? 64 : 32) : DN <= 40 ? 32 : 16;
 }
 __host__ __device__ constexpr int dq_wgs(int DN) { return DN <= 64 ? 2 : 1; }
 __host__ __device__ constexpr int dq_bc(int DN) { return DN <= 40 ? 64 : DN <= 80 ? 32 : 16; }
@@ -225,20 +238,32 @@ __host__ __device__ constexpr int dkv_bc(int DN) {
 }
 __host__ __device__ constexpr int dkv_stages(int DN) { return DN <= 80 ? 2 : 1; }
 
-// The long sums (dQ over the keys, dK and dV over the queries) leave the
-// tensor cores' accumulator every kFlushRows rows: its error grows with the
-// number of products summed, as if each HGMMA rounded toward zero (on an
-// H100, 2.4e-5 relative at 5120 keys against 1.9e-6 with chunks of
+// The long sums (O and dQ over the keys, dK and dV over the queries) leave
+// the tensor cores' accumulator every kFlushRows rows: its error grows with
+// the number of products summed, as if each HGMMA rounded toward zero (on
+// an H100, 2.4e-5 relative at 5120 keys against 1.9e-6 with chunks of
 // 256), so each chunk's sum is added in f32 (FADD, round to nearest) into
 // a second register accumulator where the registers allow (*_reg_total),
 // else into the output rows in device memory (the first chunk writes), and
 // the next chunk's first product overwrites the accumulator. The same
 // thread owns each output element throughout, so the order of the sums is
-// fixed.
+// fixed. (S = Q K^T sums over D <= 160: at most 60 HGMMA, fewer than a
+// chunk's 96.)
 constexpr int kFlushRows = 256;
+__host__ __device__ constexpr bool fwd_reg_total(int DN) { return DN <= 80; }
 __host__ __device__ constexpr bool dq_reg_total(int DN) { return DN <= 64; }
 __host__ __device__ constexpr bool dkv_reg_total(int DN) { return DN <= 64; }
 
+constexpr size_t kMaxSmem = 232448;  // a block's dynamic shared memory on the H100
+__host__ __device__ constexpr size_t fwd_bytes_ns(int DN, int WGS, int NS) {
+  return ((size_t)2 * WGS * 64 * DN + (size_t)NS * fwd_bc(DN, WGS) * (4 * DN + 1)) * 4;
+}
+__host__ __device__ constexpr int fwd_stages(int DN, int WGS) {
+  return fwd_bytes_ns(DN, WGS, 3) <= kMaxSmem ? 3 : 2;
+}
+constexpr size_t fwd_split_bytes(int DN, int WGS) {
+  return fwd_bytes_ns(DN, WGS, fwd_stages(DN, WGS));
+}
 constexpr size_t dq_bytes(int DN) {
   return ((size_t)4 * dq_wgs(DN) * 64 * DN + (size_t)dq_stages(DN) * dq_bc(DN) * (6 * DN + 1) +
           dq_wgs(DN) * 64) * 4;
@@ -248,13 +273,15 @@ constexpr size_t dkv_bytes(int DN) {
           (size_t)dkv_stages(DN) * dkv_bc(DN) * (8 * DN + 2)) * 4;
 }
 
-// x split into hi and lo, stored at element off of the hi and lo tiles.
+// x split into hi and lo, stored at element off of the hi and lo tiles
+// (unless hi is null).
 __device__ __forceinline__ void store_split4(float* hi, float* lo, int off, float4 x, float4& h,
                                              float4& l) {
   split_tf32(x.x, h.x, l.x);
   split_tf32(x.y, h.y, l.y);
   split_tf32(x.z, h.z, l.z);
   split_tf32(x.w, h.w, l.w);
+  if (hi == nullptr) return;
   *reinterpret_cast<float4*>(hi + off) = h;
   *reinterpret_cast<float4*>(lo + off) = l;
 }
@@ -295,8 +322,9 @@ struct StreamTile {
     }
   }
 
-  // hi / lo as an R x DN tile; with thi != nullptr also transposed, as a
-  // DN x R tile whose columns (the rows here) are in tf32_kperm order.
+  // hi / lo as an R x DN tile (unless hi is null); with thi != nullptr also
+  // transposed, as a DN x R tile whose columns (the rows here) are in
+  // tf32_kperm order.
   __device__ __forceinline__ void store(float* hi, float* lo, float* thi, float* tlo) const {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
@@ -347,12 +375,12 @@ __device__ __forceinline__ void split_product_rs(float* d, const uint32_t (*ah)[
   }
 }
 
-// out[r, :D] (+)= scale * acc for the thread's rows r0 and r1 = r0 + 8 of a
-// 64-row accumulator with DN columns (rows >= L are not stored). first:
-// write instead of add.
+// out[r, :D] = acc * mul_r (+ out[r, :D] * keep_r unless first) for the
+// thread's rows r0 and r1 = r0 + 8 of a 64-row accumulator with DN columns
+// (rows >= L are not stored).
 template <int DN>
-__device__ __forceinline__ void add_rows(float* out, const float* acc, int r0, int r1, int L, int D,
-                                         int t, float scale, bool first) {
+__device__ __forceinline__ void blend_rows(float* out, const float* acc, int r0, int r1, int L,
+                                           int D, int t, float2 keep, float2 mul, bool first) {
 #pragma unroll
   for (int n = 0; n < DN / 8; ++n) {
     const int d = n * 8 + 2 * t;
@@ -360,15 +388,201 @@ __device__ __forceinline__ void add_rows(float* out, const float* acc, int r0, i
     for (int h = 0; h < 2; ++h) {
       const int r = h ? r1 : r0;
       if (d >= D || r >= L) continue;
+      const float kh = h ? keep.y : keep.x, mh = h ? mul.y : mul.x;
       float2* p = reinterpret_cast<float2*>(out + (size_t)r * D + d);
-      float2 x = make_float2(acc[4 * n + 2 * h] * scale, acc[4 * n + 2 * h + 1] * scale);
+      float2 x = make_float2(acc[4 * n + 2 * h] * mh, acc[4 * n + 2 * h + 1] * mh);
       if (!first) {
         const float2 y = *p;
-        x.x += y.x;
-        x.y += y.y;
+        x.x = fmaf(y.x, kh, x.x);
+        x.y = fmaf(y.y, kh, x.y);
       }
       *p = x;
     }
+  }
+}
+
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+
+// out = softmax(scale q k^T + bias) v and its lse, as the FFMA body, for D
+// <= 160. One block a (batch * head, 64 WGS queries); Q resident, the keys
+// stream: S = Q K^T (both from shared memory, K as it lies), the online
+// softmax in f32 in log2 units (ex2.approx), O += P V (P split in
+// registers, V^T from the tile's stage). The products of consecutive tiles
+// overlap: a warpgroup issues S(j) and then P(j-1) V(j-1) together, and
+// computes the softmax of S(j) while the second runs, so three stages hold
+// the tile being stored, S(j)'s and P(j-1) V(j-1)'s (with two, a barrier
+// before each store waits for P(j-2) V(j-2) everywhere). O leaves the
+// accumulator every kFlushRows keys, into registers (fwd_reg_total) or the
+// output rows, rescaled there by the product c of the alphas since the
+// last time.
+template <int DN, int WGS>
+__global__ void __launch_bounds__(WGS * 128, 1)
+    flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ bias,
+                   float* __restrict__ out, float* __restrict__ lse, int H, int Lq, int Lk,
+                   int D, float scale) {
+  constexpr int T = WGS * 128, BR = WGS * 64;
+  constexpr int BC = fwd_bc(DN, WGS), NS = fwd_stages(DN, WGS), TILE = BR * DN, ST = BC * DN;
+  constexpr int TPC = kFlushRows / BC;  // tiles a chunk of the O sum
+  extern __shared__ __align__(128) float smem[];
+  float* Qh = smem;
+  float* Ql = Qh + TILE;
+  float* ring = Ql + TILE;         // [stage][K hi | K lo | V^T hi | V^T lo]
+  float* Bs = ring + NS * 4 * ST;  // [stage][BC] key bias in log2 units, -inf past Lk
+
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int gq = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / H, q0 = blockIdx.x * BR;
+  const float* kb = k + (size_t)bh * Lk * D;
+  const float* vb = v + (size_t)bh * Lk * D;
+  const int nk = (Lk + BC - 1) / BC;
+  const float sl2 = scale * kLog2e;
+
+  StreamTile<BC, DN, T> kt, vt;
+  float bnext = 0.f;
+  auto load = [&](int j) {
+    const int k0 = j * BC;
+    kt.load(kb + (size_t)k0 * D, Lk - k0, D);
+    vt.load(vb + (size_t)k0 * D, Lk - k0, D);
+    if (tid < BC) {
+      const int key = k0 + tid;
+      bnext = key >= Lk         ? -INFINITY
+              : bias != nullptr ? bias[(size_t)b * Lk + key] * kLog2e
+                                : 0.f;
+    }
+  };
+  // Tile j into its stage, visible to wgmma after the barrier; then the
+  // next tile's loads are issued.
+  auto stage = [&](int j) {
+    if (NS == 2) __syncthreads();  // P(j-2) V(j-2) is done with the stage
+    float* S = ring + (j % NS) * 4 * ST;
+    kt.store(S, S + ST, nullptr, nullptr);
+    vt.store(nullptr, nullptr, S + 2 * ST, S + 3 * ST);
+    if (tid < BC) Bs[(j % NS) * BC + tid] = bnext;
+    fence_proxy_async();
+    __syncthreads();  // tile j (and, the first time, Q) is in
+    if (j + 1 < nk) load(j + 1);
+  };
+  load(0);
+  stage_split<BR, DN, T>(Qh, Ql, q + ((size_t)bh * Lq + q0) * D, Lq - q0, D);
+
+  // The thread's rows: r0 = q0 + 64 wg + 16 warp + gq and r0 + 8.
+  const int r0 = q0 + wg * 64 + (tid % 128) / 32 * 16 + gq, r1 = r0 + 8;
+  const bool active = q0 + wg * 64 < Lq;  // warpgroup-uniform
+  float* ob = out + (size_t)bh * Lq * D;
+
+  // Per row: the running max m (log2 units), the sum l and the product c.
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, c0 = 1.f, c1 = 1.f;
+  float acc[DN / 2] = {}, tot[fwd_reg_total(DN) ? DN / 2 : 1] = {};
+  float s[BC / 2];
+  uint32_t ph[BC / 8][4], pl[BC / 8][4];
+
+  // s = the probabilities of tile j (S(j) in, scaled and biased in log2
+  // units), m and l updated; returns the rescale of what came before.
+  auto softmax = [&](int j, float& a0, float& a1) {
+    const float* Bt = Bs + (j % NS) * BC;
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int n = 0; n < BC / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float bj = Bt[n * 8 + 2 * t + e];
+        s[4 * n + e] = fmaf(s[4 * n + e], sl2, bj);
+        s[4 * n + 2 + e] = fmaf(s[4 * n + 2 + e], sl2, bj);
+        mx0 = fmaxf(mx0, s[4 * n + e]);
+        mx1 = fmaxf(mx1, s[4 * n + 2 + e]);
+      }
+    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    // A row with no finite logit yet subtracts 0: its p stay 0, not NaN.
+    const float z0 = mx0 == -INFINITY ? 0.f : mx0, z1 = mx1 == -INFINITY ? 0.f : mx1;
+    a0 = exp2_ftz(m0 - z0);
+    a1 = exp2_ftz(m1 - z1);
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < BC / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[4 * n + e] = exp2_ftz(s[4 * n + e] - z0);
+        s[4 * n + 2 + e] = exp2_ftz(s[4 * n + 2 + e] - z1);
+        rs0 += s[4 * n + e];
+        rs1 += s[4 * n + 2 + e];
+      }
+    }
+    l0 = fmaf(l0, a0, quad_sum(rs0));
+    l1 = fmaf(l1, a1, quad_sum(rs1));
+    m0 = mx0;
+    m1 = mx1;
+  };
+  // O's chunk of tiles [j0, ...) has left the accumulator: into tot, or
+  // into the output rows (divided by l if it is the last).
+  auto flush = [&](int j0, bool last) {
+    if constexpr (fwd_reg_total(DN)) {
+#pragma unroll
+      for (int i = 0; i < DN / 2; ++i) tot[i] = fmaf(tot[i], i % 4 < 2 ? c0 : c1, acc[i]);
+    } else {
+      const float i0 = last ? 1.f / l0 : 1.f, i1 = last ? 1.f / l1 : 1.f;
+      blend_rows<DN>(ob, acc, r0, r1, Lq, D, t, make_float2(c0 * i0, c1 * i1),
+                     make_float2(i0, i1), j0 == 0);
+    }
+    c0 = c1 = 1.f;
+  };
+  // acc and c rescaled by this tile's alphas; P(j) split into A fragments.
+  auto rescale_pack = [&](float a0, float a1) {
+    c0 *= a0;
+    c1 *= a1;
+#pragma unroll
+    for (int n = 0; n < DN / 8; ++n) {
+      acc[4 * n] *= a0;
+      acc[4 * n + 1] *= a0;
+      acc[4 * n + 2] *= a1;
+      acc[4 * n + 3] *= a1;
+    }
+#pragma unroll
+    for (int kk = 0; kk < BC / 8; ++kk) pack_a_tf32(ph[kk], pl[kk], s, kk);
+  };
+
+  stage(0);
+  if (active) {
+    wgmma_fence();
+    split_product_ss<BC, DN>(s, Qh, Ql, ring, ring + ST, wg);
+    wgmma_commit();
+    wgmma_wait<0>();
+    float a0, a1;
+    softmax(0, a0, a1);
+    rescale_pack(a0, a1);
+  }
+  for (int j = 1; j < nk; ++j) {
+    stage(j);
+    if (!active) continue;
+    const float* S = ring + (j % NS) * 4 * ST;
+    const float* P = ring + ((j - 1) % NS) * 4 * ST;
+    wgmma_fence();
+    split_product_ss<BC, DN>(s, Qh, Ql, S, S + ST, wg);
+    wgmma_commit();
+    split_product_rs<DN, BC>(acc, ph, pl, P + 2 * ST, P + 3 * ST, (j - 1) % TPC != 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    float a0, a1;
+    softmax(j, a0, a1);
+    wgmma_wait<0>();
+    if (j % TPC == 0) flush(j - TPC, false);
+    rescale_pack(a0, a1);
+  }
+  if (!active) return;
+  const float* P = ring + ((nk - 1) % NS) * 4 * ST;
+  wgmma_fence();
+  split_product_rs<DN, BC>(acc, ph, pl, P + 2 * ST, P + 3 * ST, (nk - 1) % TPC != 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  flush((nk - 1) / TPC * TPC, true);
+  if constexpr (fwd_reg_total(DN))
+    blend_rows<DN>(ob, tot, r0, r1, Lq, D, t, make_float2(0.f, 0.f),
+                   make_float2(1.f / l0, 1.f / l1), true);
+  if (lse != nullptr && t == 0) {
+    if (r0 < Lq) lse[(size_t)bh * Lq + r0] = fmaf(m0, kLn2, logf(l0));
+    if (r1 < Lq) lse[(size_t)bh * Lq + r1] = fmaf(m1, kLn2, logf(l1));
   }
 }
 
@@ -498,11 +712,14 @@ __global__ void __launch_bounds__(dq_wgs(DN) * 128, 1)
 #pragma unroll
       for (int i = 0; i < DN / 2; ++i) tot[i] += acc[i];
     } else if (active) {
-      add_rows<DN>(dq + (size_t)bh * Lq * D, acc, r0, r1, Lq, D, t, scale, c0 == 0);
+      blend_rows<DN>(dq + (size_t)bh * Lq * D, acc, r0, r1, Lq, D, t, make_float2(1.f, 1.f),
+                     make_float2(scale, scale), c0 == 0);
     }
   }
   if constexpr (dq_reg_total(DN))
-    if (active) add_rows<DN>(dq + (size_t)bh * Lq * D, tot, r0, r1, Lq, D, t, scale, true);
+    if (active)
+      blend_rows<DN>(dq + (size_t)bh * Lq * D, tot, r0, r1, Lq, D, t, make_float2(1.f, 1.f),
+                     make_float2(scale, scale), true);
 }
 
 // dk = scale * sum_i ds_ij q_i, dv = sum_i p_ij dO_i, dbias_j = sum_i ds_ij
@@ -627,14 +844,18 @@ __global__ void __launch_bounds__(dkv_wgs(DN) * 128, 1)
         dvt[i] += dva[i];
       }
     } else if (active) {
-      add_rows<DN>(dk + (size_t)bh * Lk * D, dka, key0, key1, Lk, D, t, scale, c0 == 0);
-      add_rows<DN>(dv + (size_t)bh * Lk * D, dva, key0, key1, Lk, D, t, 1.f, c0 == 0);
+      blend_rows<DN>(dk + (size_t)bh * Lk * D, dka, key0, key1, Lk, D, t, make_float2(1.f, 1.f),
+                     make_float2(scale, scale), c0 == 0);
+      blend_rows<DN>(dv + (size_t)bh * Lk * D, dva, key0, key1, Lk, D, t, make_float2(1.f, 1.f),
+                     make_float2(1.f, 1.f), c0 == 0);
     }
   }
   if constexpr (dkv_reg_total(DN)) {
     if (active) {
-      add_rows<DN>(dk + (size_t)bh * Lk * D, dkt, key0, key1, Lk, D, t, scale, true);
-      add_rows<DN>(dv + (size_t)bh * Lk * D, dvt, key0, key1, Lk, D, t, 1.f, true);
+      blend_rows<DN>(dk + (size_t)bh * Lk * D, dkt, key0, key1, Lk, D, t, make_float2(1.f, 1.f),
+                     make_float2(scale, scale), true);
+      blend_rows<DN>(dv + (size_t)bh * Lk * D, dvt, key0, key1, Lk, D, t, make_float2(1.f, 1.f),
+                     make_float2(1.f, 1.f), true);
     }
   }
 
@@ -792,8 +1013,6 @@ __global__ void __launch_bounds__(kGemmThreads)
 
 // Dynamic shared memory past 48 KB needs the kernel's opt-in, once an
 // instance (at its largest head dim), before any graph capture.
-constexpr size_t kMaxSmem = 232448;  // a block's dynamic shared memory on the H100
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -812,15 +1031,36 @@ constexpr size_t fwd_bytes(int D) {
   return (size_t)(kRows * D + kTileKeys * lane_pitch(D) + kTileKeys * D + kStaged) * 4;
 }
 
-template <int NC>
-int fwd(const float* q, const float* k, const float* v, const float* bias, float* out,
-        float* lse, int B, int H, int Lq, int Lk, int D, float scale, cudaStream_t s) {
-  static const cudaError_t err = allow_smem(flash_fwd_f32<NC>, fwd_bytes(32 * NC));
+constexpr int kFfmaNC = 16;  // the FFMA body's columns a lane owns: D <= 512
+
+int fwd_ffma(const float* q, const float* k, const float* v, const float* bias, float* out,
+             float* lse, int B, int H, int Lq, int Lk, int D, float scale, cudaStream_t s) {
+  static const cudaError_t err = allow_smem(flash_fwd_f32<kFfmaNC>, fwd_bytes(32 * kFfmaNC));
   if (err != cudaSuccess) return (int)err;
-  const size_t bytes = fwd_bytes(D);
-  flash_fwd_f32<NC><<<attn_grid(Lq, B * H), kAttnThreads, bytes, s>>>(q, k, v, bias, out, lse,
-                                                                       H, Lq, Lk, D, scale);
+  flash_fwd_f32<kFfmaNC><<<attn_grid(Lq, B * H), kAttnThreads, fwd_bytes(D), s>>>(
+      q, k, v, bias, out, lse, H, Lq, Lk, D, scale);
   return (int)cudaGetLastError();
+}
+
+template <int DN, int WGS>
+int fwd_split_wgs(const float* q, const float* k, const float* v, const float* bias, float* out,
+                  float* lse, int B, int H, int Lq, int Lk, int D, float scale, cudaStream_t s) {
+  constexpr size_t bytes = fwd_split_bytes(DN, WGS);
+  static_assert(bytes <= kMaxSmem, "forward: shared memory");
+  static const cudaError_t err = allow_smem(flash_fwd_tf32<DN, WGS>, bytes);
+  if (err != cudaSuccess) return (int)err;
+  flash_fwd_tf32<DN, WGS><<<dim3((Lq + 64 * WGS - 1) / (64 * WGS), B * H), 128 * WGS, bytes, s>>>(
+      q, k, v, bias, out, lse, H, Lq, Lk, D, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int DN>
+int fwd_split(const float* q, const float* k, const float* v, const float* bias, float* out,
+              float* lse, int B, int H, int Lq, int Lk, int D, float scale, cudaStream_t s) {
+  if constexpr (DN <= 80)
+    if (fwd_wgs(DN, Lq) == 2)
+      return fwd_split_wgs<DN, 2>(q, k, v, bias, out, lse, B, H, Lq, Lk, D, scale, s);
+  return fwd_split_wgs<DN, 1>(q, k, v, bias, out, lse, B, H, Lq, Lk, D, scale, s);
 }
 
 template <int DN>
@@ -867,10 +1107,23 @@ extern "C" int mvldm_f32_flash_fwd(const void* q, const void* k, const void* v,
   const auto* bf = static_cast<const float*>(bias);
   auto* of = static_cast<float*>(out);
   auto* lf = static_cast<float*>(lse);
-  if (D <= 64) return fwd<2>(qf, kf, vf, bf, of, lf, B, H, Lq, Lk, D, scale, s);
-  if (D <= 96) return fwd<3>(qf, kf, vf, bf, of, lf, B, H, Lq, Lk, D, scale, s);
-  if (D <= 160) return fwd<5>(qf, kf, vf, bf, of, lf, B, H, Lq, Lk, D, scale, s);
-  return fwd<16>(qf, kf, vf, bf, of, lf, B, H, Lq, Lk, D, scale, s);
+  switch (D <= 160 ? split_dn(D) : 0) {
+    case 16: return fwd_split<16>(qf, kf, vf, bf, of, lf, B, H, Lq, Lk, D, scale, s);
+    case 40: return fwd_split<40>(qf, kf, vf, bf, of, lf, B, H, Lq, Lk, D, scale, s);
+    case 64: return fwd_split<64>(qf, kf, vf, bf, of, lf, B, H, Lq, Lk, D, scale, s);
+    case 80: return fwd_split<80>(qf, kf, vf, bf, of, lf, B, H, Lq, Lk, D, scale, s);
+    case 160: return fwd_split<160>(qf, kf, vf, bf, of, lf, B, H, Lq, Lk, D, scale, s);
+    default: return fwd_ffma(qf, kf, vf, bf, of, lf, B, H, Lq, Lk, D, scale, s);
+  }
+}
+
+// The dynamic shared memory of the forward's instance for Lq queries of
+// head dim D (bytes), or cudaErrorInvalidValue.
+extern "C" int mvldm_f32_flash_fwd_smem(int Lq, int D, int* smem) {
+  if (Lq <= 0 || D <= 0 || D % 4 || D > 512) return (int)cudaErrorInvalidValue;
+  const int dn = split_dn(D);
+  *smem = (int)(D > 160 ? fwd_bytes(D) : fwd_split_bytes(dn, fwd_wgs(dn, Lq)));
+  return 0;
 }
 
 // As the forward, plus o and g (dO) like q, lse (B, H, Lq); writes delta
@@ -890,7 +1143,7 @@ extern "C" int mvldm_f32_flash_bwd_dq(const void* q, const void* k, const void* 
   const auto* bf = static_cast<const float*>(bias);
   auto* df = static_cast<float*>(delta);
   auto* dqf = static_cast<float*>(dq);
-  switch (bwd_dn(D)) {
+  switch (split_dn(D)) {
     case 16: return bwd_dq<16>(qf, kf, vf, of, gf, lf, bf, df, dqf, B, H, Lq, Lk, D, scale, s);
     case 40: return bwd_dq<40>(qf, kf, vf, of, gf, lf, bf, df, dqf, B, H, Lq, Lk, D, scale, s);
     case 64: return bwd_dq<64>(qf, kf, vf, of, gf, lf, bf, df, dqf, B, H, Lq, Lk, D, scale, s);
@@ -918,7 +1171,7 @@ extern "C" int mvldm_f32_flash_bwd_dkv(const void* q, const void* k, const void*
   auto* dkf = static_cast<float*>(dk);
   auto* dvf = static_cast<float*>(dv);
   auto* dbf = static_cast<float*>(dbias);
-  switch (bwd_dn(D)) {
+  switch (split_dn(D)) {
     case 16:
       return bwd_dkv<16>(qf, kf, vf, gf, lf, df, bf, dkf, dvf, dbf, B, H, Lq, Lk, D, scale, s);
     case 40:
@@ -936,7 +1189,7 @@ extern "C" int mvldm_f32_flash_bwd_dkv(const void* q, const void* k, const void*
 // dim D (bytes), or cudaErrorInvalidValue.
 extern "C" int mvldm_f32_flash_bwd_smem(int D, int* dq_smem, int* dkv_smem) {
   if (D <= 0 || D % 4 || D > 160) return (int)cudaErrorInvalidValue;
-  const int dn = bwd_dn(D);
+  const int dn = split_dn(D);
   *dq_smem = (int)dq_bytes(dn);
   *dkv_smem = (int)dkv_bytes(dn);
   return 0;

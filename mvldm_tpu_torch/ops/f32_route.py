@@ -5,9 +5,10 @@ precision (``trainer.precision: null``). The bf16 kernels take bf16 only, so
 the dispatchers (``attention``, ``fused_ln_self_attention``,
 ``fused_ln_geglu_ff`` and their autograd Functions) hand f32 tensors on the
 card to the wrappers here, which launch the hand-written kernels of
-``csrc/f32_route.cu`` (the backward on the tensor cores as split TF32,
-three TF32 products for each f32 one; the rest FFMA); bf16 goes to the
-bf16 kernels as before. The choice is by dtype, made before any launch;
+``csrc/f32_route.cu`` (the forward at head dims up to 160 and the backward
+on the tensor cores as split TF32, three TF32 products for each f32 one;
+the forward at head dims 161-512, LayerNorm, GEMM and GEGLU on FFMA);
+bf16 goes to the bf16 kernels as before. The choice is by dtype, made before any launch;
 nothing is caught to fall back.
 
 * :func:`flash_attention_f32` — forward, optional f32 lse; head dims up to
@@ -36,6 +37,7 @@ from . import _build
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "mvldm_f32_flash_fwd": [_P] * 6 + [_I] * 5 + [_F, _P],
+    "mvldm_f32_flash_fwd_smem": [_I, _I, _P],
     "mvldm_f32_flash_bwd_dq": [_P] * 9 + [_I] * 5 + [_F, _P],
     "mvldm_f32_flash_bwd_dkv": [_P] * 10 + [_I] * 5 + [_F, _P],
     "mvldm_f32_flash_bwd_smem": [_I, _P, _P],
@@ -85,9 +87,12 @@ def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
     return 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
 
 
-def _launch_fwd(q, k, v, bias, out, lse, scale: float) -> None:
+def _launch_fwd(q, k, v, bias, out, lse, scale: float, lib=None) -> None:
+    """The forward kernel of ``lib`` (a build of ``csrc/f32_route.cu``, this
+    tree's by default) on checked inputs, writing ``out`` and, if not None,
+    ``lse``."""
     b, h, lq, d = q.shape
-    _build.check(_lib().mvldm_f32_flash_fwd(
+    _build.check((lib or _lib()).mvldm_f32_flash_fwd(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _optr(bias), _build.ptr(out), _optr(lse),
         b, h, lq, k.shape[2], d, float(scale), _build.stream_ptr(q.device)),
         f"mvldm_f32_flash_fwd (head dim {d})")
@@ -139,6 +144,15 @@ def _launch_bwd(lib, q, k, v, bias, out, lse, g, scale: float, need_dbias: bool)
              if bias is not None and need_dbias else None)
     _launch_bwd_dkv(lib, q, k, v, g, lse, delta, bias, dk, dv, dbias, scale)
     return dq, dk, dv, dbias
+
+
+def fwd_smem_bytes(lq: int, d: int) -> int:
+    """The dynamic shared memory (bytes) of the forward's instance for ``lq``
+    queries of head dim ``d`` (builds the library)."""
+    smem = ctypes.c_int()
+    _build.check(_lib().mvldm_f32_flash_fwd_smem(lq, d, ctypes.byref(smem)),
+                 f"mvldm_f32_flash_fwd_smem (Lq {lq}, head dim {d})")
+    return smem.value
 
 
 def bwd_smem_bytes(d: int) -> dict:

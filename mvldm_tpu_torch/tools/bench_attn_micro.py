@@ -270,17 +270,22 @@ flash.launches = 0
 
 def exp(x: torch.Tensor) -> torch.Tensor:
     """Hand-written elementwise exp of an f32 tensor (``csrc/micro_exp.cu``):
-    ``expf`` on 16-byte vector loads."""
+    ``expf`` on streamed 16-byte vector loads, one wave of blocks."""
     _check_cuda("exp", (torch.float32,), x)
     if x.numel() == 0:
         raise ValueError("exp: empty tensor")
     out = torch.empty_like(x)
-    lib = _build.load("micro_exp", _EXP_SIG)
+    _launch_exp(_build.load("micro_exp", _EXP_SIG), x, out)
+    exp.launches += 1
+    return out
+
+
+def _launch_exp(lib, x, out) -> None:
+    """``lib``'s exp entry on the current stream (no checks, no count);
+    ``lib`` is a build of ``csrc/micro_exp.cu``."""
     err = lib.mvldm_micro_exp(_build.ptr(x), _build.ptr(out), x.numel(),
                               _build.stream_ptr(x.device))
     _build.check(err, "mvldm_micro_exp")
-    exp.launches += 1
-    return out
 
 
 exp.launches = 0

@@ -2,7 +2,7 @@
 in turns, on one NVIDIA GPU.
 
     python -m mvldm_tpu_torch.tools.kernel_compare --other DIR
-        [--kernel bwd|fwd|gemm|micro|f32bwd] [--rounds N] [--only TEXT]
+        [--kernel bwd|fwd|gemm|micro|f32bwd|f32fwd|exp] [--rounds N] [--only TEXT]
 
 DIR is another checkout of this repository, for example the parent commit
 unpacked with ``git archive`` into an ignored directory such as
@@ -36,7 +36,15 @@ replay). One JSON line per shape and launch, then the card as
   f32) at every attention shape of a training step (:data:`F32_BWD_SHAPES`),
   each build held within relative L2 of the plain backward in f32 (TF32
   off), SDPA's f32 backward and its backend, the 3xTF32 and FFMA bounds
-  beside it.
+  beside it;
+* ``f32fwd``: the f32 route's forward (``f32_route.cu``) at every forward
+  shape of sampling and training (:func:`fwd_shapes`, the fill and the
+  D = 512 VAE included) in f32, each build's relative L2 for out and lse
+  against the plain version in f32 (TF32 off), SDPA in f32 and its
+  backend, the 3xTF32 and FFMA bounds, the instance's shared memory;
+* ``exp``: the exp probe (``micro_exp.cu``) at :data:`EXP_SHAPES`, each
+  build within 1e-6 relative of exp in float64, ``torch.exp`` and the
+  byte bound beside it.
 """
 
 from __future__ import annotations
@@ -121,16 +129,22 @@ MICRO_CASES = [
 # a training step, through the f32 route.
 F32_BWD_SHAPES = TRAIN_SHAPES
 
+# The exp probe's (l, l) tile (the TPU tool's l = 1024) and one of 64 MB,
+# past the 50 MB L2.
+EXP_SHAPES = [(1024, 1024), (4096, 4096)]
+
 SOURCES = {"bwd": ("flash_attn_bwd",), "fwd": ("flash_attn_fwd",),
            "gemm": ("fused_ln_attn", "fused_ln_geglu_ff", "micro_matmul"),
-           "micro": ("micro_attn",), "f32bwd": ("f32_route",)}
+           "micro": ("micro_attn",), "f32bwd": ("f32_route",), "f32fwd": ("f32_route",),
+           "exp": ("micro_exp",)}
 SIGNATURES = {"flash_attn_bwd": attn._BWD_SIGNATURES, "flash_attn_fwd": attn._FWD_SIGNATURES,
               "fused_ln_attn": fused_attn._SIGNATURES, "fused_ln_geglu_ff": fused_ff._SIGNATURES,
               "micro_matmul": micro._MATMUL_SIG, "micro_attn": micro._ATTN_SIG,
-              "f32_route": f32_route._SIGNATURES}
+              "micro_exp": micro._EXP_SIG, "f32_route": f32_route._SIGNATURES}
 # The entries the comparison calls in another checkout's build, where that
-# source holds entries this tree added since (f32_route.cu's smem query).
-OTHER_ENTRIES = {"f32_route": ("mvldm_f32_flash_bwd_dq", "mvldm_f32_flash_bwd_dkv")}
+# source holds entries this tree added since (f32_route.cu's smem queries).
+OTHER_ENTRIES = {"f32_route": ("mvldm_f32_flash_fwd", "mvldm_f32_flash_bwd_dq",
+                               "mvldm_f32_flash_bwd_dkv")}
 
 
 def attn_inputs(gen, b, h, l, d, with_bias):
@@ -344,6 +358,94 @@ def compare_f32bwd(libs, args, card: str) -> None:
         rec["this_over_sdpa"] = rec["this"]["ms"] / rec["sdpa_f32_bwd_ms"]
         print(json.dumps(rec), flush=True)
         del q, k, v, g, bias, out, lse
+        torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------- f32fwd
+
+def sdpa_f32(q, k, v, bias, iters: int) -> dict:
+    """SDPA's forward on these f32 inputs, TF32 off: its device time and
+    the backend it ran."""
+    mask = None if bias is None else bias[:, None, None, :]
+
+    def fwd():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    with measure.no_tf32():
+        return dict(sdpa_f32_ms=measure.time_ms(fwd, iters),
+                    sdpa_f32_backend=measure.sdpa_backend(fwd))
+
+
+def f32_fwd_errors(lib, q, k, v, bias, ref_out, ref_lse) -> dict:
+    """Relative L2 of ``lib``'s f32 forward, out and lse, against the plain
+    version's."""
+    out, lse = torch.empty_like(q), torch.empty(q.shape[:3], device=q.device)
+    f32_route._launch_fwd(q, k, v, bias, out, lse, attn._scale(q, None), lib)
+    return dict(out=rel_l2(out, ref_out), lse=rel_l2(lse, ref_lse))
+
+
+def compare_f32fwd(libs, args, card: str) -> None:
+    libs = {name: ls["f32_route"] for name, ls in libs.items()}
+    gen = torch.Generator("cuda").manual_seed(0)
+    for label, b, h, l, d, with_bias, with_lse in fwd_shapes():
+        if args.only and not any(text in label for text in args.only):
+            continue
+        q, k, v, bias = attn_inputs(gen, b, h, l, d, with_bias)
+        q, k, v = q.float(), k.float(), v.float()
+        with measure.no_tf32():
+            ref_out, ref_lse = attn.attention_reference_lse(q, k, v, bias)
+        errs = {name: f32_fwd_errors(lib, q, k, v, bias, ref_out, ref_lse)
+                for name, lib in libs.items()}
+        del ref_out, ref_lse
+        scale = attn._scale(q, None)
+        out = torch.empty_like(q)
+        lse = torch.empty(q.shape[:3], device="cuda") if with_lse else None
+        iters = 10 if l >= 1024 else 50
+        times = in_turns({name: (lambda lib=lib: f32_route._launch_fwd(q, k, v, bias, out, lse,
+                                                                       scale, lib))
+                          for name, lib in libs.items()}, args.rounds, iters)
+        rec = dict(kernel="f32fwd", shape=label, B=b, H=h, L=l, D=d, bias=with_bias,
+                   lse=with_lse, smem_bytes=f32_route.fwd_smem_bytes(l, d),
+                   **measure.f32_fwd_bounds(b, h, l, l, d, measure.nbytes(q, k, v, bias, out, lse)),
+                   **sdpa_f32(q, k, v, bias, iters), card=card)
+        for name, ts in times.items():
+            rec[name] = dict(ms=_mean(ts), rel_l2=errs[name], turns=ts)
+        rec["this_over_other"] = rec["this"]["ms"] / rec["other"]["ms"]
+        rec["this_over_sdpa"] = rec["this"]["ms"] / rec["sdpa_f32_ms"]
+        rec["this_share_of_bound"] = rec["bound_ms"] / rec["this"]["ms"]
+        print(json.dumps(rec), flush=True)
+        del q, k, v, bias, out, lse
+        torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ exp
+
+def compare_exp(libs, args, card: str) -> None:
+    libs = {name: ls["micro_exp"] for name, ls in libs.items()}
+    gen = torch.Generator("cuda").manual_seed(0)
+    for shape in EXP_SHAPES:
+        label = "x".join(map(str, shape))
+        if args.only and not any(text in label for text in args.only):
+            continue
+        x = torch.randn(shape, generator=gen, device="cuda")
+        out = torch.empty_like(x)
+        ref = torch.exp(x.double())
+        errs = {}
+        for name, lib in libs.items():
+            micro._launch_exp(lib, x, out)
+            errs[name] = ((out.double() - ref) / ref).abs().max().item()
+        del ref
+        times = in_turns({name: (lambda lib=lib: micro._launch_exp(lib, x, out))
+                          for name, lib in libs.items()}, args.rounds, None)
+        bound_ms, bound_by = measure.bound(0.0, measure.nbytes(x, out))
+        rec = dict(kernel="exp", shape=label, bound_ms=bound_ms, bound_by=bound_by,
+                   torch_exp_ms=measure.time_ms(lambda: torch.exp(x)), card=card)
+        for name, ts in times.items():
+            rec[name] = dict(ms=_mean(ts), max_rel_err=errs[name], turns=ts)
+        rec["this_over_other"] = rec["this"]["ms"] / rec["other"]["ms"]
+        rec["this_over_torch"] = rec["this"]["ms"] / rec["torch_exp_ms"]
+        print(json.dumps(rec), flush=True)
+        del x, out
         torch.cuda.empty_cache()
 
 
@@ -625,8 +727,9 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = measure.card_line()
     libs = load_libs(args.kernel, args.other)
-    {"bwd": compare_bwd, "fwd": compare_fwd, "gemm": compare_gemm,
-     "micro": compare_micro, "f32bwd": compare_f32bwd}[args.kernel](libs, args, card)
+    {"bwd": compare_bwd, "fwd": compare_fwd, "gemm": compare_gemm, "micro": compare_micro,
+     "f32bwd": compare_f32bwd, "f32fwd": compare_f32fwd, "exp": compare_exp}[args.kernel](
+        libs, args, card)
     print(card, flush=True)
     return 0
 

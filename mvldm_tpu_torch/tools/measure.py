@@ -167,8 +167,11 @@ def device_kernels(fn: Callable[[], object]) -> List[str]:
 def sdpa_backend(fn: Callable[[], object]) -> dict:
     """The backend that a scaled_dot_product_attention call ``fn`` ran
     (flash, efficient, cudnn, or math where none of those kernels ran),
-    named from its device kernels (:func:`device_kernels`)."""
+    named from its device kernels (:func:`device_kernels`); "not recorded"
+    where the profiler recorded no device kernel at all."""
     names = device_kernels(fn)
+    if not names:
+        return dict(backend="not recorded", kernels=[])
     low = " ".join(names).lower()
     backend = next((b for key, b in (("flash", "flash"), ("cudnn", "cudnn"), ("fmha", "efficient"),
                                      ("efficient", "efficient")) if key in low), "math")
@@ -188,13 +191,23 @@ def bound(flops: float, moved: int, peak_flops: float = PEAK_BF16_FLOPS
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def f32_bwd_bounds(b: int, h: int, lq: int, lk: int, d: int, moved: int) -> dict:
-    """Bounds of the f32 attention backward (dQ, dK, dV: five L x L x D
-    products) on (B, H, Lq, Lk, D) moving ``moved`` bytes: ``bound_ms`` /
-    ``bound_by`` for products with f32 accuracy on the tensor cores (three
-    TF32 products for each, at PEAK_TF32_FLOPS), and ``ffma_bound_ms`` for
-    the same products on FFMA (PEAK_FP32_FLOPS)."""
-    flops = 10.0 * b * h * lq * lk * d
+def f32_bounds(flops: float, moved: int) -> dict:
+    """Bounds of f32 products of ``flops`` moving ``moved`` bytes:
+    ``bound_ms`` / ``bound_by`` with f32 accuracy on the tensor cores
+    (three TF32 products for each, at PEAK_TF32_FLOPS), and
+    ``ffma_bound_ms`` for the same products on FFMA (PEAK_FP32_FLOPS)."""
     bound_ms, bound_by = bound(3 * flops, moved, PEAK_TF32_FLOPS)
     return dict(bound_ms=bound_ms, bound_by=bound_by,
                 ffma_bound_ms=bound(flops, moved, PEAK_FP32_FLOPS)[0])
+
+
+def f32_fwd_bounds(b: int, h: int, lq: int, lk: int, d: int, moved: int) -> dict:
+    """:func:`f32_bounds` of the f32 attention forward (S = Q K^T and O = P
+    V: two Lq x Lk x D products) on (B, H, Lq, Lk, D)."""
+    return f32_bounds(4.0 * b * h * lq * lk * d, moved)
+
+
+def f32_bwd_bounds(b: int, h: int, lq: int, lk: int, d: int, moved: int) -> dict:
+    """:func:`f32_bounds` of the f32 attention backward (dQ, dK, dV: five Lq
+    x Lk x D products) on (B, H, Lq, Lk, D)."""
+    return f32_bounds(10.0 * b * h * lq * lk * d, moved)

@@ -10,7 +10,7 @@ from mvldm_tpu_torch.tools import bench_attn_micro as micro
 from mvldm_tpu_torch.tools import kernel_compare, measure
 
 
-@pytest.mark.parametrize("kernel", ["bwd", "fwd", "gemm", "micro", "f32bwd"])
+@pytest.mark.parametrize("kernel", ["bwd", "fwd", "gemm", "micro", "f32bwd", "f32fwd", "exp"])
 def test_compare_tool_needs_a_card(capsys, kernel):
     """Every --kernel exits non-zero, with no result line, without a card."""
     assert kernel_compare.main(["--other", ".", "--kernel", kernel]) == 2
@@ -103,10 +103,10 @@ def test_f32bwd_shapes_are_the_training_shapes():
     assert kernel_compare.SOURCES["f32bwd"] == ("f32_route",)
     assert set(kernel_compare.SIGNATURES["f32_route"]) >= {"mvldm_f32_flash_bwd_dq",
                                                             "mvldm_f32_flash_bwd_dkv"}
-    # another checkout's f32_route.cu is declared with the two entries the
-    # comparison calls (an older one has no shared-memory query)
-    assert set(kernel_compare.other_signatures("f32_route")) == {"mvldm_f32_flash_bwd_dq",
-                                                                  "mvldm_f32_flash_bwd_dkv"}
+    # another checkout's f32_route.cu is declared with the entries the
+    # comparisons call (an older one has no shared-memory queries)
+    assert set(kernel_compare.other_signatures("f32_route")) == {
+        "mvldm_f32_flash_fwd", "mvldm_f32_flash_bwd_dq", "mvldm_f32_flash_bwd_dkv"}
     assert kernel_compare.other_signatures("flash_attn_bwd") == kernel_compare.SIGNATURES[
         "flash_attn_bwd"]
 
@@ -135,3 +135,67 @@ def test_f32_bwd_bounds_scale_with_the_work(b, h, l, d):
     assert got["bound_ms"] == pytest.approx(max(ops_ms, bytes_ms))
     assert got["bound_by"] == ("operations" if ops_ms >= bytes_ms else "bytes")
     assert got["ffma_bound_ms"] >= got["bound_ms"]
+
+
+def test_f32fwd_runs_the_forward_shapes():
+    """The f32 forward comparison builds f32_route.cu and runs every forward
+    shape of sampling and training (the fill and the D = 512 VAE among
+    them), each timed with the lse where training writes it."""
+    assert kernel_compare.SOURCES["f32fwd"] == ("f32_route",)
+    assert set(kernel_compare.SIGNATURES["f32_route"]) >= {"mvldm_f32_flash_fwd",
+                                                            "mvldm_f32_flash_fwd_smem"}
+    shapes = kernel_compare.fwd_shapes()
+    assert any("fill" in s[0] for s in shapes) and any(s[4] == 512 for s in shapes)
+    assert {s[4] for s in shapes} == {40, 64, 80, 160, 512}
+    assert len(shapes) == len(kernel_compare.SAMPLING_SHAPES) + len(kernel_compare.TRAIN_SHAPES)
+
+
+def test_exp_compare_shapes():
+    """The exp comparison runs the probe's 1024 x 1024 tile and one past the
+    50 MB L2, on micro_exp.cu."""
+    assert kernel_compare.SOURCES["exp"] == ("micro_exp",)
+    assert (1024, 1024) in kernel_compare.EXP_SHAPES
+    assert max(8 * a * b for a, b in kernel_compare.EXP_SHAPES) > 50e6
+
+
+def test_f32_fwd_bounds_at_the_joint_shape():
+    """At the joint 32x32 shape (B=2, H=8, L=5120, D=40) S = Q K^T and O = P
+    V take 6.711e10 flop: three TF32 products each at 494.7 TFLOP/s is
+    0.407 ms, FFMA at 67 TFLOP/s 1.0016 ms; both above the bytes."""
+    b, h, l, d = 2, 8, 5120, 40
+    moved = 4 * (b * h * l * d * 4 + b * l)
+    got = measure.f32_fwd_bounds(b, h, l, l, d, moved)
+    assert got["bound_by"] == "operations"
+    assert got["bound_ms"] == pytest.approx(0.4070, abs=1e-4)
+    assert got["ffma_bound_ms"] == pytest.approx(1.0016, abs=1e-4)
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d", [(2, 8, 1280, 1280, 80), (12, 1, 1024, 1024, 512),
+                                         (20, 20, 16, 16, 64), (1, 2, 100, 300, 160)])
+def test_f32_fwd_bounds_scale_with_the_work(b, h, lq, lk, d):
+    """The forward's 3xTF32 bound is its two products three times over at
+    the TF32 rate where they outweigh the bytes, the bytes elsewhere; the
+    FFMA bound is never below it, and the backward's five products bound
+    above the forward's two."""
+    moved = 4 * (b * h * (2 * lq + 2 * lk) * d + b * lk)
+    got = measure.f32_fwd_bounds(b, h, lq, lk, d, moved)
+    bytes_ms = moved / measure.PEAK_BYTES * 1e3
+    ops_ms = 12.0 * b * h * lq * lk * d / measure.PEAK_TF32_FLOPS * 1e3
+    assert got["bound_ms"] == pytest.approx(max(ops_ms, bytes_ms))
+    assert got["bound_by"] == ("operations" if ops_ms >= bytes_ms else "bytes")
+    assert got["ffma_bound_ms"] >= got["bound_ms"]
+    assert measure.f32_bwd_bounds(b, h, lq, lk, d, moved)["bound_ms"] >= got["bound_ms"]
+
+
+@pytest.mark.parametrize("names,backend", [
+    (["fmha_cutlassF_f32_aligned_64x64_rf_sm80(PyTorchMemEffAttention::AttentionKernel"],
+     "efficient"),
+    (["flash_fwd_kernel<Flash_fwd_kernel_traits"], "flash"),
+    (["ampere_sgemm_128x64_nn", "softmax_warp_forward"], "math"),
+    ([], "not recorded"),
+])
+def test_sdpa_backend_names(monkeypatch, names, backend):
+    """SDPA's backend is named from the device kernels a call ran; a profile
+    that recorded none names no backend."""
+    monkeypatch.setattr(measure, "device_kernels", lambda fn: names)
+    assert measure.sdpa_backend(lambda: None)["backend"] == backend

@@ -20,8 +20,9 @@ float64 (``expf`` is within 2 ulp). The f32-dot flash is also held within
 ``bench_attn_micro.F32_FLASH_REL_LIMIT`` (1e-3) of the rms, the precision
 its P V on both halves of p exists for (p in bf16 alone reads ~1e-2). The
 f32 route's kernels (``ops/f32_route.py``) are held within relative L2
-1e-5 of the plain versions in f32, and an f32 model through them within
-3e-4 of the CPU.
+1e-5 of the plain versions in f32 (the forward also where one key is left
+unmasked: that key's value to 1e-6, p = 1 split exactly into hi), and an
+f32 model through them within 3e-4 of the CPU.
 """
 
 import math
@@ -278,7 +279,9 @@ def test_micro_matmul(cuda, m, n, k, dtype):
         assert_kernel_close(out, micro.matmul_reference(a.float(), b.float()))
 
 
-@pytest.mark.parametrize("shape", [(1024, 1024), (37, 5)])
+# The probe's tile; n % 4 != 0; n < 4 (only the tail); past one wave of
+# blocks (132 SMs x 8 blocks x 256 threads x 4 float4) with a tail of 3.
+@pytest.mark.parametrize("shape", [(1024, 1024), (37, 5), (1,), (3,), (4097, 4099)])
 def test_micro_exp(cuda, shape):
     x = torch.randn(shape, generator=torch.Generator().manual_seed(0)).to(cuda)
     before = micro.exp.launches
@@ -616,7 +619,7 @@ F32_JOINT_SHAPES = [
 ]
 
 
-@pytest.mark.parametrize("b,h,lq,lk,d,with_bias", F32_ATTN_SHAPES)
+@pytest.mark.parametrize("b,h,lq,lk,d,with_bias", F32_ATTN_SHAPES + F32_JOINT_SHAPES)
 def test_f32_flash_forward(cuda, b, h, lq, lk, d, with_bias):
     gen = torch.Generator().manual_seed(d + lq + lk)
     q, k, v = (_f32(gen, b, h, n, d, device=cuda) for n in (lq, lk, lk))
@@ -625,6 +628,41 @@ def test_f32_flash_forward(cuda, b, h, lq, lk, d, with_bias):
     out, lse = flash_attention_f32(q, k, v, bias, return_lse=True)
     torch.cuda.synchronize()
     assert flash_attention_f32.launches == before + 1
+    ref, ref_lse = attention_reference_lse(q, k, v, bias)
+    _assert_f32_close(out, ref)
+    _assert_f32_close(lse, ref_lse)
+
+
+@pytest.mark.parametrize("lk", [255, 256, 257])
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_f32_flash_forward_around_a_chunk(cuda, lk, d):
+    """Key counts either side of the 256 keys after which O leaves the
+    tensor cores' accumulator: the last chunk full, one key short, and one
+    key past it."""
+    gen = torch.Generator().manual_seed(d + lk)
+    q, k, v = (_f32(gen, 2, 2, n, d, device=cuda) for n in (130, lk, lk))
+    bias = _f32_bias(gen, 2, lk, cuda)
+    out, lse = flash_attention_f32(q, k, v, bias, return_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = attention_reference_lse(q, k, v, bias)
+    _assert_f32_close(out, ref)
+    _assert_f32_close(lse, ref_lse)
+
+
+@pytest.mark.parametrize("d", [40, 160, 512])
+def test_f32_flash_forward_all_keys_masked_but_one(cuda, d):
+    """A row whose bias masks every key but one returns that key's value,
+    and its lse is that key's logit."""
+    gen = torch.Generator().manual_seed(d)
+    b, h, lq, lk = 2, 2, 70, 300
+    q, k, v = (_f32(gen, b, h, n, d, device=cuda) for n in (lq, lk, lk))
+    bias = torch.zeros((b, lk))
+    bias[1] = -1e30
+    bias[1, 217] = 0.0
+    bias = bias.to(cuda)
+    out, lse = flash_attention_f32(q, k, v, bias, return_lse=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out[1], v[1, :, 217:218].expand(h, lq, d), atol=1e-6, rtol=1e-6)
     ref, ref_lse = attention_reference_lse(q, k, v, bias)
     _assert_f32_close(out, ref)
     _assert_f32_close(lse, ref_lse)

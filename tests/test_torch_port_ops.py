@@ -47,7 +47,7 @@ def test_neg_inf_matches():
     assert port_attn.NEG_INF == JAX_NEG_INF
 
 
-@pytest.mark.parametrize("d", [40, 64, 80])
+@pytest.mark.parametrize("d", [40, 64, 80, 160, 512])
 @pytest.mark.parametrize("lq,lk", [(64, 64), (100, 300)])
 @pytest.mark.parametrize("with_bias", [False, True])
 def test_attention_reference_vs_jax(d, lq, lk, with_bias):
@@ -61,6 +61,24 @@ def test_attention_reference_vs_jax(d, lq, lk, with_bias):
     pallas = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jb,
                                   interpret=True, block_q=128, block_k=128))
     np.testing.assert_allclose(got, pallas, atol=2e-5)
+
+
+@pytest.mark.parametrize("lq,lk", [(64, 64), (100, 300)])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_attention_lse_vs_jax_vae_head(lq, lk, with_bias):
+    """The lse at the VAE's single 512-wide head (``attention_reference_lse``,
+    which the f32 kernels are held to) against the interpreted Pallas
+    kernel's ``return_lse``; the narrower heads are held in
+    ``tests/test_torch_port_attention_bwd.py``."""
+    q, k, v = _qkv(512 + lq, 2, 1, lq, lk, 512)
+    bias = _bias(512, 2, lk) if with_bias else None
+    out, lse = port_attn.attention_reference_lse(_t(q), _t(k), _t(v),
+                                                 None if bias is None else _t(bias))
+    jb = None if bias is None else jnp.asarray(bias)
+    j_out, j_lse = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jb,
+                             return_lse=True, interpret=True, block_q=128, block_k=128)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse)[..., 0], atol=1e-4)
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_out), atol=2e-5)
 
 
 def test_attention_dispatch_cpu_is_plain():
