@@ -7,9 +7,11 @@ Phases, each fatal on failure (non-zero exit, no final result line):
 1. device and build: the card's name and power limit; the CUDA kernels are
    compiled from mvldm_tpu_torch/csrc with nvcc (one process per source,
    all started together), with ptxas's registers and spills for every
-   kernel; the f32 route's split-TF32 instances (the forward's nine and
-   the backward's ten) must show HGMMA on TF32 operands, and no HMMA, in
-   the library's SASS (cuobjdump).
+   kernel; the f32 route's split-TF32 instances (the forward's nine, the
+   backward's ten and the GEMM tile's two) and the matmul probe's f32
+   instance of that tile must show HGMMA on TF32 operands, and no HMMA, in
+   the libraries' SASS (cuobjdump), and none of the FFMA bodies they
+   replaced (flash_fwd_f32, gemm_f32, matmul_f32_kernel) may be left.
 2. one phase per kernel of sampling and training at the main paths'
    shapes: the kernel against its plain PyTorch version computed in f32 on
    the same bf16 inputs (see ``check``), device times of both (CUDA graph
@@ -33,8 +35,9 @@ Phases, each fatal on failure (non-zero exit, no final result line):
    and the call reports device times of kernel, plain version and library
    call (cuBLAS, SDPA, torch.exp; for the f32-dot flash also SDPA on f32
    copies of its inputs, the same function, with the backend it ran), the
-   bound at the route's peak (bf16 989 or FP32 FFMA 67 TFLOP/s, or the
-   bytes; for fullk with the max also the products its two passes run)
+   bound at the route's peak (bf16 989 TFLOP/s, or three TF32 products at
+   494.7 for the f32 matmul, the FFMA bound beside it, or the bytes; for
+   fullk with the max also the products its two passes run)
    and, for flash and fullk, the exp floor, one JSON line per probe call.
    The f32-dot flash's own error must also stay within
    bench_attn_micro.F32_FLASH_REL_LIMIT of the rms. Every probe kernel's
@@ -51,18 +54,21 @@ Phases, each fatal on failure (non-zero exit, no final result line):
 6. full-width UNet parity: one batched-CFG UNet forward (2 rows x 5 views,
    32x32 latents, view mask) on the card in bf16 with the kernels against
    the host CPU in f32 with the plain versions.
-7. the f32 route (mvldm_tpu_torch.ops.f32_route, csrc/f32_route.cu): each
-   of its four wrappers at the f32 UNet's shapes against its plain version
-   in f32 (relative L2 within F32_KERNEL_REL_L2), with device times; the
-   forward (split TF32 on wgmma up to D = 160, FFMA at the VAE's 512), out
+7. the f32 route (mvldm_tpu_torch.ops.f32_route, csrc/f32_route.cu, every
+   product split TF32 on wgmma): each of its wrappers at the f32 UNet's
+   shapes against its plain version in f32 (relative L2 within
+   F32_KERNEL_REL_L2), with device times; the forward (the flash kernel up
+   to D = 160, past it the GEMM tile's route: S, the row pass, P V), out
    and lse, at every sampling shape, with SDPA in f32 and its backend, the
    bound at three TF32 products for each f32 one (494.7 TFLOP/s), the FFMA
-   bound beside it and the instance's shared memory; the backward (split
-   TF32) at the joint 32x32, 16x16 and 8x8 shapes, with SDPA's f32
-   backward and its backend and both bounds; the fused blocks bound at
-   FP32 FFMA 67 TFLOP/s; then the seeded flagship built in f32 on the card runs the
-   UNet parity forward against the host's f32 output (F32_REL_L2_BOUND):
-   every f32 forward kernel must launch and no bf16 kernel may.
+   bound beside it and the instance's shared memory; the backward at the
+   joint 32x32, 16x16 and 8x8 shapes, with SDPA's f32 backward and its
+   backend and both bounds; the fused blocks with both bounds and each of
+   their GEMM launches alone beside cuBLAS f32 (TF32 off); the GEMM tile
+   and the row pass on their own; then the seeded flagship built in f32 on
+   the card runs the UNet parity forward against the host's f32 output
+   (F32_REL_L2_BOUND): every f32 forward kernel of the UNet must launch
+   and no bf16 kernel may.
 8. train-step parity: loss and UNet gradient of one training step at batch
    1 with injected draws, the card (bf16, kernels) against the host CPU
    (f32, plain versions); then the same step on the f32 engine against the
@@ -397,6 +403,7 @@ def f32_kernels_phase(card: str, gen) -> dict:
         attention_reference_lse,
     )
     from mvldm_tpu_torch.ops.f32_route import (
+        MAX_FLASH_HEAD_DIM,
         bwd_smem_bytes,
         flash_attention_bwd_f32,
         flash_attention_f32,
@@ -412,15 +419,14 @@ def f32_kernels_phase(card: str, gen) -> dict:
         FF_BLOCK_SHAPES,
         SAMPLING_SHAPES,
         attn_block_inputs,
+        f32_block_gemms,
         f32_train_inputs,
         ff_block_inputs,
         sdpa_f32,
         sdpa_f32_bwd,
     )
-    from mvldm_tpu_torch.tools.measure import PEAK_FP32_FLOPS, f32_bwd_bounds, f32_fwd_bounds
-
-    def f32(t):  # an f32 copy that keeps a transposed weight transposed
-        return t.t().float().t() if t.dim() == 2 and not t.is_contiguous() else t.float()
+    from mvldm_tpu_torch.tools.kernel_compare import _f32 as f32
+    from mvldm_tpu_torch.tools.measure import f32_bounds, f32_bwd_bounds, f32_fwd_bounds
 
     recs = {}
     fwd = []
@@ -437,8 +443,13 @@ def f32_kernels_phase(card: str, gen) -> dict:
                    plain_ms=time_ms(lambda: attention_reference(q, k, v, bias), 3),
                    **sdpa_f32(q, k, v, bias, iters),
                    **f32_fwd_bounds(b, h, l, l, d, nbytes(q, k, v, bias, out)),
-                   kernel_route="split TF32" if d <= 160 else "FFMA",
-                   smem_bytes=fwd_smem_bytes(l, d))
+                   kernel_route=("split TF32 flash (flash_fwd_tf32)" if d <= MAX_FLASH_HEAD_DIM
+                                 else "split TF32 GEMM tile (gemm_tf32x3): S = scale Q K^T + "
+                                 "bias, the row pass (attn_rows_f32), O = P V; scores "
+                                 "through device memory"),
+                   smem_bytes=fwd_smem_bytes(l, d),
+                   smem_instance=("flash_fwd_tf32" if d <= MAX_FLASH_HEAD_DIM
+                                  else "gemm_tf32x3 (csrc/f32_gemm_tile.cuh)"))
         rec["library_ms"] = rec["sdpa_f32_ms"]
         emit(phase="f32_fwd", kernel="flash_attention_f32", **rec, card=card)
         fwd.append(rec)
@@ -481,32 +492,98 @@ def f32_kernels_phase(card: str, gen) -> dict:
         ms=time_ms(lambda: fused_ln_self_attention_f32(*args)),
         plain_ms=time_ms(lambda: fused_ln_self_attention_reference(*args), 3),
         library_ms=None, decomposed_ms=time_ms(lambda: _attn_decomposed(*args, 1e-6)),
-        **dict(zip(("bound_ms", "bound_by"), bound(
-            8.0 * n * l * c * hd + 4.0 * n * heads * l * l * d, nbytes(*args[:8], out),
-            PEAK_FP32_FLOPS))))
+        **f32_bounds(8.0 * n * l * c * hd + 4.0 * n * heads * l * l * d,
+                     nbytes(*args[:8], out)),
+        gemm_launches=f32_gemm_launches(f32_block_gemms(gen, "attn", label, (n, l, c, heads, d))))
     label, n, l, c = FF_BLOCK_SHAPES[0]
     args = tuple(f32(t) for t in ff_block_inputs(gen, n, l, c))
     x = args[0]
     out = fused_ln_geglu_ff_f32(*args)
+    ff_gemms = f32_gemm_launches(f32_block_gemms(gen, "ff", label, (n, l, c)))
     recs["fused_ln_geglu_ff_f32"] = dict(
         shape=label, **_f32_check(out - x, fused_ln_geglu_ff_reference(*args) - x,
                                   f"fused_ln_geglu_ff_f32 {label}"),
         ms=time_ms(lambda: fused_ln_geglu_ff_f32(*args)),
         plain_ms=time_ms(lambda: fused_ln_geglu_ff_reference(*args), 3),
         library_ms=None, decomposed_ms=time_ms(lambda: ln_geglu_ff_decomposed(*args)),
-        **dict(zip(("bound_ms", "bound_by"), bound(
-            24.0 * n * l * c * c, nbytes(*args, out), PEAK_FP32_FLOPS))))
+        **f32_bounds(24.0 * n * l * c * c, nbytes(*args, out)), gemm_launches=ff_gemms)
+    w1 = ff_gemms[0]  # the GEMM tile's line: its widest launch, W1 + b1 at C = 320
+    recs["gemm_f32"] = dict(
+        shape=f"{label} {w1['entry']} {w1['shape']}", ms=w1["ms"], plain_ms=w1["plain_ms"],
+        library_ms=w1["cublas_f32_ms"], library="cuBLAS f32 (TF32 off), F.linear",
+        bound_ms=w1["bound_ms"], bound_by=w1["bound_by"], ffma_bound_ms=w1["ffma_bound_ms"],
+        rel_l2=w1["rel_l2"], max_abs_err=max(r["max_abs_err"] for r in ff_gemms
+                                             + recs["fused_ln_self_attention_f32"]
+                                             ["gemm_launches"]))
+    recs["attention_rows_f32"] = attention_rows_record(gen)
     for name, rec in recs.items():
         emit(phase="kernel", kernel=name, route="f32", **rec, card=card)
     return recs
 
 
+def f32_gemm_launches(calls) -> list:
+    """Each f32 GEMM launch of a fused block on its own (kernel_compare's
+    f32_block_gemms): this tree's kernel within F32_KERNEL_REL_L2 of the
+    product in float64, its device time, the plain version's (the product
+    in f32 by PyTorch, bias and residual added apart), both bounds and
+    cuBLAS f32 (TF32 off) on the same operands."""
+    from mvldm_tpu_torch.ops import _build
+    from mvldm_tpu_torch.tools.kernel_compare import SIGNATURES, rel_l2
+    from mvldm_tpu_torch.tools.measure import f32_gemm_bounds, no_tf32
+
+    recs = []
+    for call in calls:
+        lib = _build.load(call.source, SIGNATURES[call.source])
+        call.run(lib)
+        out, ref = call.outs[0], call.refs[0]
+        err = rel_l2(out, ref)
+        if not torch.isfinite(out).all() or not err <= F32_KERNEL_REL_L2:
+            fail(f"{call.entry} {call.shape}: f32 relative L2 {err:.4g} > {F32_KERNEL_REL_L2}")
+        m, n, k = call.mnk
+        with no_tf32():
+            cublas_ms = time_ms(call.library)
+            plain_ms = time_ms(call.plain, 3)
+        recs.append(dict(entry=call.entry, shape=call.shape, M=m, N=n, K=k, rel_l2=err,
+                         max_abs_err=(out.double() - ref).abs().max().item(),
+                         ms=time_ms(lambda: call.run(lib)), plain_ms=plain_ms,
+                         cublas_f32_ms=cublas_ms, **f32_gemm_bounds(m, n, k, call.moved)))
+    return recs
+
+
+def attention_rows_record(gen) -> dict:
+    """The route's row pass on its own at the VAE's scores (12 heads of
+    1024 x 1024, S = Q K^T / sqrt(512) of seeded f32 q, k): lse and P within
+    F32_KERNEL_REL_L2 of the plain version, device times of both, the byte
+    bound (S read, P and lse written). No single PyTorch call computes
+    both the lse and P, so no library time."""
+    from mvldm_tpu_torch.ops.f32_route import attention_rows_f32, attention_rows_reference
+
+    z, l, d = 12, 1024, 512
+    q, k = (torch.randn((z, l, d), generator=gen, device="cuda") for _ in range(2))
+    s = torch.matmul(q, k.transpose(1, 2)) * d ** -0.5
+    lse, ref_lse, ref = (torch.empty((z, l), device="cuda"), torch.empty((z, l), device="cuda"),
+                         s.clone())
+    work = s.clone()
+    attention_rows_f32(work, lse, l)
+    attention_rows_reference(ref, ref_lse, l)
+    acc = _f32_check(work, ref, "attention_rows_f32 P")
+    acc["lse"] = _f32_check(lse, ref_lse, "attention_rows_f32 lse")
+    bound_ms, bound_by = bound(0.0, 2 * nbytes(s) + nbytes(lse))
+    return dict(shape=f"VAE mid-block scores ({z}, {l}, {l})", **acc,
+                ms=time_ms(lambda: attention_rows_f32(work, lse, l)),
+                plain_ms=time_ms(lambda: attention_rows_reference(ref, ref_lse, l), 3),
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+
+
 # ------------------------------------------------ attention microbenchmark
 
-# Where the four probe kernels stand and what they replace; the kernels line
-# takes each probe's first case of the run.
+# Where the four probe kernels stand and what they replace (the matmul
+# probe's bf16 and f32 routes apart: two tiles); the kernels line takes each
+# one's first case of the run.
 MICRO_META = {
     "matmul": ("mvldm_tpu_torch/csrc/micro_matmul.cu", "tools/bench_attn_micro.py:59"),
+    "matmul_f32": ("mvldm_tpu_torch/csrc/micro_matmul.cu (+ f32_gemm_tile.cuh)",
+                   "tools/bench_attn_micro.py:59 (f32)"),
     "fullk": ("mvldm_tpu_torch/csrc/micro_attn.cu", "tools/bench_attn_micro.py:91"),
     "flash": ("mvldm_tpu_torch/csrc/micro_attn.cu", "tools/bench_attn_micro.py:163"),
     "exp": ("mvldm_tpu_torch/csrc/micro_exp.cu", "tools/bench_attn_micro.py:249"),
@@ -567,10 +644,13 @@ def micro_phase(card: str):
 
     for fn in micro.KERNELS:
         fn.launches = 0
+    micro.matmul.f32_launches = 0
     t0 = time.perf_counter()
     results = micro.run(micro.SECTIONS, check=micro_check)
     seconds = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in micro.KERNELS}
+    launches["matmul_f32"] = micro.matmul.f32_launches
+    launches["matmul"] -= launches["matmul_f32"]
     for r in results:
         emit(phase="micro", **{k: _jsonable(v) for k, v in r.items() if k != "case"},
              case={k: _jsonable(v) for k, v in r["case"].items()}, card=card)
@@ -591,7 +671,9 @@ def micro_phase(card: str):
 
     records = {}
     for name in MICRO_META:
-        mine = [r for r in results if r["probe"] == name]
+        probe, _, f32 = name.partition("_")
+        mine = [r for r in results if r["probe"] == probe
+                and (probe != "matmul" or (r["dtype"] == "float32") == bool(f32))]
         records[name] = dict(mine[0], shape={k: _jsonable(v) for k, v in mine[0]["case"].items()},
                              max_abs_err=max(r["max_abs_err"] for r in mine))
     return records, launches
@@ -610,6 +692,8 @@ def micro_kernel_record(name: str, r: dict, launches: int) -> dict:
     if "library_f32_ms" in r:
         rec.update(library_ms=r["library_f32_ms"], library_backend=r["library_f32_backend"],
                    library_bf16_ms=r["library_ms"])
+    if name == "matmul_f32":  # cuBLAS f32 with TF32 off; the FFMA bound beside the 3xTF32 one
+        rec.update(library="cuBLAS f32 (TF32 off)", ffma_bound_ms=r["ffma_bound_ms"])
     return rec
 
 
@@ -823,7 +907,10 @@ def f32_phase(card: str, inputs, cpu_out, kernels, f32_kernels):
         fail(f"f32 UNet on the card: rel L2 {rel:.4g} > {F32_REL_L2_BOUND}")
     if any(launches.values()):
         fail(f"bf16 kernels launched on the f32 model: {launches}")
-    idle = [name for name, n in f32_launches.items() if n == 0 and "bwd" not in name]
+    # The UNet has no head dim past 160: the row pass runs in the f32 step's
+    # VAE encode (train_parity_f32).
+    idle = [name for name, n in f32_launches.items()
+            if n == 0 and "bwd" not in name and name != "attention_rows_f32"]
     if idle:
         fail(f"f32 forward kernels never launched on the f32 model: {idle}")
     return engine, f32_launches
@@ -1000,30 +1087,41 @@ def train_profile_phase(card: str, state, step, batch, gen) -> None:
          "device events", wall_ms=wall_ms, **device_breakdown(prof, 1), card=card)
 
 
-# The f32 route's split-TF32 instances: the forward at D <= 160 (head-dim
-# instance, warpgroups a block) and both backward kernels (head-dim
-# instance).
-SPLIT_TF32_INSTANCES = (
-    [f"flash_fwd_tf32<{dn}, {wgs}>" for dn in (16, 40, 64, 80) for wgs in (1, 2)]
-    + ["flash_fwd_tf32<160, 1>"]
-    + [f"{name}<{dn}>" for name in ("flash_bwd_dq_f32", "flash_bwd_dkv_f32")
-       for dn in (16, 40, 64, 80, 160)])
+# The split-TF32 instances: in f32_route.cu the forward at D <= 160
+# (head-dim instance, warpgroups a block), both backward kernels (head-dim
+# instance) and the GEMM tile (B (N, K) and (K, N)); in micro_matmul.cu the
+# tile for the probe's (K, N) B. The FFMA bodies they replaced must be gone.
+SPLIT_TF32_INSTANCES = {
+    "f32_route": (
+        [f"flash_fwd_tf32<{dn}, {wgs}>" for dn in (16, 40, 64, 80) for wgs in (1, 2)]
+        + ["flash_fwd_tf32<160, 1>"]
+        + [f"{name}<{dn}>" for name in ("flash_bwd_dq_f32", "flash_bwd_dkv_f32")
+           for dn in (16, 40, 64, 80, 160)]
+        + ["gemm_tf32x3<0>", "gemm_tf32x3<1>"]),
+    "micro_matmul": ["gemm_tf32x3<1>"],
+}
+FFMA_BODIES = ("flash_fwd_f32", "gemm_f32", "matmul_f32_kernel")
 
 
 def sass_phase(card: str) -> None:
-    """The f32 route's split-TF32 instances in the built library's SASS
-    (cuobjdump): each must be there and run its products as HGMMA on TF32
-    operands, and none as HMMA."""
+    """The split-TF32 instances in the built libraries' SASS (cuobjdump):
+    each must be there and run its products as HGMMA on TF32 operands, and
+    none as HMMA; no FFMA body of the f32 route or the probe is left."""
     from mvldm_tpu_torch.ops import _build
 
-    found = {k: v for k, v in _build.sass_report("f32_route").items()
-             if k.startswith(("flash_fwd_tf32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32"))}
-    emit(phase="sass", source="mvldm_tpu_torch/csrc/f32_route.cu", kernels=found, card=card)
-    missing = [k for k in SPLIT_TF32_INSTANCES if k not in found]
-    bad = [k for k, v in found.items()
-           if v["HMMA"] or not any(f.endswith("TF32") for f in v["HGMMA forms"])]
-    if missing or bad:
-        fail(f"split-TF32 instances missing {missing} or without TF32 HGMMA (or with HMMA) {bad}")
+    for source, instances in SPLIT_TF32_INSTANCES.items():
+        report = _build.sass_report(source)
+        found = {k: v for k, v in report.items()
+                 if k.startswith(("flash_fwd_tf32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32",
+                                  "gemm_tf32x3"))}
+        emit(phase="sass", source=f"mvldm_tpu_torch/csrc/{source}.cu", kernels=found, card=card)
+        missing = [k for k in instances if k not in found]
+        bad = [k for k, v in found.items()
+               if v["HMMA"] or not any(f.endswith("TF32") for f in v["HGMMA forms"])]
+        left = [k for k in report if k.split("<")[0] in FFMA_BODIES]
+        if missing or bad or left:
+            fail(f"{source}: split-TF32 instances missing {missing} or without TF32 HGMMA "
+                 f"(or with HMMA) {bad}; FFMA bodies left {left}")
 
 
 def main() -> int:
@@ -1080,6 +1178,16 @@ def main() -> int:
         card, engine, forward + backward, F32_KERNELS)
     train_profile_phase(card, state, step, batch, train_gen)
 
+    f32_meta = {
+        "flash_attention_f32": "mvldm_tpu/ops/attention.py:76",
+        "flash_attention_bwd_f32": "mvldm_tpu/ops/attention.py:282, :324",
+        "fused_ln_self_attention_f32": "mvldm_tpu/ops/fused_attn.py:65",
+        "fused_ln_geglu_ff_f32": "mvldm_tpu/ops/fused_ff.py:75",
+        "gemm_f32": ("the products of mvldm_tpu/ops/fused_attn.py:65, "
+                     "mvldm_tpu/ops/fused_ff.py:75 and, past head dim 160, "
+                     "mvldm_tpu/ops/attention.py:76"),
+        "attention_rows_f32": "the softmax of mvldm_tpu/ops/attention.py:76 past head dim 160",
+    }
     meta = {
         "flash_attention": ("mvldm_tpu_torch/csrc/flash_attn_fwd.cu",
                             "mvldm_tpu/ops/attention.py:76"),
@@ -1102,9 +1210,10 @@ def main() -> int:
              library_ms=r["library_ms"], timed_shape=r["shape"])
         for name, r in results.items()
     ] + [
-        dict(name=name, route="cuda", source="mvldm_tpu_torch/csrc/f32_route.cu",
-             replaces=meta[name.replace("_f32", "")][1] if "bwd" not in name else
-             f"{meta['flash_attention_bwd_dq'][1]}, :324",
+        dict(name=name, route="cuda",
+             source="mvldm_tpu_torch/csrc/f32_route.cu" + (
+                 " (+ f32_gemm_tile.cuh)" if name != "attention_rows_f32" else ""),
+             replaces=f32_meta[name],
              launches=f32_forward_launches[name] + f32_step_launches[name],
              launches_by_path={"f32_forward": f32_forward_launches[name],
                                "f32_train_step": f32_step_launches[name]},

@@ -5,7 +5,11 @@
 //
 // Replaces the same TPU kernels as the bf16 bodies, in f32:
 //   * `_flash_kernel` (mvldm_tpu/ops/attention.py), forward with the
-//     optional lse: mvldm_f32_flash_fwd;
+//     optional lse: mvldm_f32_flash_fwd up to head dim 160; past it (the
+//     VAE's 512) three launches a chunk of heads, which the wrapper chains
+//     (ops/f32_route.py): S = scale Q K^T + bias by mvldm_f32_gemm_batched
+//     into a scratch of scores, mvldm_f32_attn_rows (lse and P = exp(S -
+//     lse) in place), O = P V by mvldm_f32_gemm_batched;
 //   * `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` (same file):
 //     mvldm_f32_flash_bwd_dq (also writes delta = rowsum(dO * O)) and
 //     mvldm_f32_flash_bwd_dkv (dK, dV and the per-head key-bias gradient);
@@ -14,40 +18,30 @@
 //     mvldm_f32_layer_norm, mvldm_f32_gemm (head-split output, head-merged
 //     input, + bias, + residual), the flash forward, and mvldm_f32_geglu.
 //
-// What bounds it: the products. On FFMA, 67 TFLOP/s on the H100 SXM, ~1/15
-// of the bf16 tensor rate; on the tensor cores as split TF32, three TF32
-// products for each f32 one at 494.7 TFLOP/s, 2.5x the FFMA rate. The L x L
-// scores never reach device memory.
+// What bounds it: the products, on the tensor cores as split TF32, three
+// TF32 products for each f32 one at 494.7 TFLOP/s (FFMA's rate is 67 on the
+// H100 SXM). Every product is split TF32 on wgmma:
 //   * forward at head dims up to 160, and the backward (dQ, dK / dV /
-//     dbias): split TF32 on wgmma, see "forward" and "backward" below:
-//     warpgroups of 64 rows, the resident operand's hi / lo tiles loaded
-//     once, the streamed tiles split on their way into shared memory and
-//     stored transposed where wgmma needs them K-major (V for O += P V),
-//     P and dS split in registers, no atomics.
-//   * forward at head dims 161-512 (the VAE's 512): FFMA, as no split
-//     design fits there (a 64-row Q as hi / lo takes 256 KB of shared
-//     memory, a 64 x 512 O 256 registers a thread): blocks of 8
-//     warps, each warp 4 rows (32 rows a block, the
-//     resident operand in shared memory); 32-row tiles of the streamed
-//     operand through shared memory, padded to D + 4 floats a row where a
-//     lane reads its own row 16 bytes at a time (no bank conflicts); lane j
-//     owns key j of the tile for the dot products, reading the
-//     warp's rows as 16-byte broadcasts; p goes to the warp's
-//     staging array in shared memory and comes back four keys at a time
-//     while each lane accumulates columns lane, lane + 32, ...: ~1 shared
-//     memory read for every 2 to 3 FMAs. The online softmax in f32 with
-//     expf and warp shuffles. Keys past the end are zero rows
-//     with p = 0.
-//   * GEMM: out = A W^T with W a torch Linear weight (N, K) row-major, the
-//     micro_matmul.cu FFMA tile (128 x 128 outputs a block of 256 threads,
-//     8 x 8 a thread, both operands staged k-major, the next 8-deep step
-//     in registers while the current one is multiplied).
+//     dbias), see "forward" and "backward" below: warpgroups of 64 rows,
+//     the resident operand's hi / lo tiles loaded once, the streamed tiles
+//     split on their way into shared memory and stored transposed where
+//     wgmma needs them K-major (V for O += P V), P and dS split in
+//     registers, no atomics; the L x L scores never reach device memory.
+//   * forward at head dims 161-512: no flash design fits there (a 64-row Q
+//     as hi / lo takes 256 KB of shared memory, a 64 x 512 O 256 registers
+//     a thread), so the scores go through device memory (4 MB a head at the
+//     VAE's L = 1024), and both products run on the GEMM tile;
+//   * GEMM: f32_gemm_tile.cuh (two warpgroups, 128 x 128 outputs a block,
+//     a three-stage ring of split, swizzled tiles; W (N, K) as it lies, V
+//     (K, N) transposed on its way in).
+// LayerNorm, GEGLU and the row pass are plain SIMT passes bound by bytes.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "attn_tile.cuh"    // quad_max, quad_sum
-#include "hopper_tile.cuh"  // split tf32, wgmma, descriptors
+#include "attn_tile.cuh"      // quad_max, quad_sum
+#include "f32_gemm_tile.cuh"  // the split-TF32 GEMM tile
+#include "hopper_tile.cuh"    // split tf32, wgmma, descriptors
 
 namespace {
 
@@ -56,9 +50,6 @@ using attn_tile::quad_sum;
 using namespace hopper_tile;
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarps = 8, kAttnThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 4, kRows = kWarps * kRowsPerWarp;  // 32 rows a block
-constexpr int kTileKeys = 32;
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -70,136 +61,6 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
   return x;
-}
-
-// rows [r0, r0 + kRows) of a (L, D) matrix into shared memory with a row
-// pitch of `pitch` floats, zeros past L; 16-byte moves (D, pitch % 4 == 0).
-__device__ __forceinline__ void load_rows(float* dst, const float* src, int r0, int L, int D,
-                                          int pitch) {
-  const int d4 = D / 4;
-  for (int i = threadIdx.x; i < kRows * d4; i += kAttnThreads) {
-    const int r = i / d4, c = i - r * d4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < L) v = reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * D)[c];
-    *reinterpret_cast<float4*>(dst + r * pitch + 4 * c) = v;
-  }
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
-}
-
-__device__ __forceinline__ float at4(float4 v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// Row pitch of a tile a lane reads its own row of, 16 bytes at a time:
-// D + 4 floats, so the eight lanes of each quarter-warp phase hit eight
-// distinct 16-byte bank groups where D % 8 == 0.
-__host__ __device__ constexpr int lane_pitch(int D) { return D + 4; }
-
-// acc[r][c] += sum_j w[r][j] * rows[j][c * 32 + lane] over the 32 rows of a
-// tile (pitch `pitch`), w the warp's staged (kRowsPerWarp, 32) weights read
-// four at a time; rows past the end hold zeros and their weights are 0.
-template <int NC>
-__device__ __forceinline__ void accumulate(float (*acc)[NC], const float* w, const float* rows,
-                                           int pitch, int D, int lane) {
-#pragma unroll 2
-  for (int j = 0; j < kTileKeys; j += 4) {
-    float4 wr[kRowsPerWarp];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) wr[r] = ld4(w + r * kTileKeys + j);
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int d = c * 32 + lane;
-        const float x = d < D ? rows[(j + jj) * pitch + d] : 0.f;
-#pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) acc[r][c] = fmaf(at4(wr[r], jj), x, acc[r][c]);
-      }
-    }
-  }
-}
-
-// ------------------------------------------------- forward on FFMA (D > 160)
-
-// out = softmax(scale q k^T + bias) v; lse = the row log-sum-exp of the
-// scaled, biased logits (natural log). NC: columns a lane owns, D <= 32 NC.
-template <int NC>
-__global__ void __launch_bounds__(kAttnThreads)
-    flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ bias,
-                  float* __restrict__ out, float* __restrict__ lse, int H, int Lq, int Lk,
-                  int D, float scale) {
-  extern __shared__ __align__(128) float smem[];
-  const int KP = lane_pitch(D);
-  float* Qs = smem;                       // kRows x D
-  float* Ks = Qs + kRows * D;             // kTileKeys x KP
-  float* Vs = Ks + kTileKeys * KP;        // kTileKeys x D
-  float* Ps = Vs + kTileKeys * D;         // kWarps x kRowsPerWarp x kTileKeys
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int bh = blockIdx.y, b = bh / H, q0 = blockIdx.x * kRows;
-  const float* kb = k + (size_t)bh * Lk * D;
-  const float* vb = v + (size_t)bh * Lk * D;
-  load_rows(Qs, q + (size_t)bh * Lq * D, q0, Lq, D, D);
-  const float* Qw = Qs + warp * kRowsPerWarp * D;
-  float* Pw = Ps + warp * kRowsPerWarp * kTileKeys;
-
-  float m[kRowsPerWarp], l[kRowsPerWarp], o[kRowsPerWarp][NC];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) o[r][c] = 0.f;
-  }
-  for (int k0 = 0; k0 < Lk; k0 += kTileKeys) {
-    __syncthreads();  // Q in; every warp done with the last tile
-    load_rows(Ks, kb, k0, Lk, D, KP);
-    load_rows(Vs, vb, k0, Lk, D, D);
-    __syncthreads();
-    const bool valid = k0 + lane < Lk;
-    const float bj = bias != nullptr && valid ? bias[(size_t)b * Lk + k0 + lane] : 0.f;
-    float s[kRowsPerWarp] = {};
-    const float* Kj = Ks + lane * KP;
-    for (int d = 0; d < D; d += 4) {
-      const float4 kv = ld4(Kj + d);
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) s[r] = dot4(ld4(Qw + r * D + d), kv, s[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const float sr = valid ? fmaf(s[r], scale, bj) : -INFINITY;
-      const float mn = fmaxf(m[r], warp_max(sr));
-      const float alpha = m[r] == -INFINITY ? 0.f : expf(m[r] - mn);
-      const float p = sr == -INFINITY ? 0.f : expf(sr - mn);
-      l[r] = fmaf(l[r], alpha, warp_sum(p));
-      m[r] = mn;
-      Pw[r * kTileKeys + lane] = p;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) o[r][c] *= alpha;
-    }
-    __syncwarp();
-    accumulate<NC>(o, Pw, Vs, D, D, lane);
-  }
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = q0 + warp * kRowsPerWarp + r;
-    if (row >= Lq) continue;
-    const float inv = 1.f / l[r];
-    float* ob = out + ((size_t)bh * Lq + row) * D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = c * 32 + lane;
-      if (d < D) ob[d] = o[r][c] * inv;
-    }
-    if (lse != nullptr && lane == 0) lse[(size_t)bh * Lq + row] = m[r] + logf(l[r]);
-  }
 }
 
 // -------------------------------------------------------- split TF32
@@ -403,8 +264,8 @@ __device__ __forceinline__ void blend_rows(float* out, const float* acc, int r0,
 
 constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 
-// out = softmax(scale q k^T + bias) v and its lse, as the FFMA body, for D
-// <= 160. One block a (batch * head, 64 WGS queries); Q resident, the keys
+// out = softmax(scale q k^T + bias) v and its lse (natural log) for D <=
+// 160. One block a (batch * head, 64 WGS queries); Q resident, the keys
 // stream: S = Q K^T (both from shared memory, K as it lies), the online
 // softmax in f32 in log2 units (ex2.approx), O += P V (P split in
 // registers, V^T from the tile's stage). The products of consecutive tiles
@@ -867,7 +728,7 @@ __global__ void __launch_bounds__(dkv_wgs(DN) * 128, 1)
   }
 }
 
-// ------------------------------------------------- LayerNorm, GEMM, GEGLU
+// ------------------------------------------------------ LayerNorm, GEGLU
 
 // y = (x - mean) / sqrt(var + eps) * gamma + beta per row of C (biased
 // variance, two passes over the row); a warp a row.
@@ -904,107 +765,52 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-constexpr int kTile = 128, kDepth = 8, kGemmThreads = 256;
+// ------------------------------------------------------- the row pass
 
-// Row r, columns c..c+3 of a (M, H*D) operand stored as (M / L, H, L, D)
-// (heads > 0) or row-major (heads == 0); D % 4 == 0 keeps the four in one
-// head.
-__device__ __forceinline__ size_t at(int r, int c, int ncols, int heads, int L, int D) {
-  if (heads == 0) return (size_t)r * ncols + c;
-  const int n = r / L, l = r - n * L, h = c / D, d = c - h * D;
-  return (((size_t)n * heads + h) * L + l) * D + d;
-}
-
-// out = A W^T (+ bias[n]) (+ res[m, n]); A (M, K), W (N, K) row-major (a
-// torch Linear weight), out (M, N). a_heads / out_heads > 0: that operand
-// is laid out as (M / L, heads, L, D) with heads * D its width.
-__global__ void __launch_bounds__(kGemmThreads)
-    gemm_f32(const float* __restrict__ a, const float* __restrict__ w,
-             const float* __restrict__ bias, const float* __restrict__ res,
-             float* __restrict__ out, int M, int N, int K, int a_heads, int out_heads, int L,
-             int D) {
-  __shared__ __align__(16) float As[2][kDepth][kTile];  // As[k][m]
-  __shared__ __align__(16) float Ws[2][kDepth][kTile];  // Ws[k][n]
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  const int lr = tid / 2, lk = (tid % 2) * 4;  // one float4 of A and one of W a step
-
-  auto load = [&](int k0, float4& ra, float4& rw) {
-    ra = make_float4(0.f, 0.f, 0.f, 0.f);
-    rw = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (m0 + lr < M && k0 + lk < K)
-      ra = *reinterpret_cast<const float4*>(a + at(m0 + lr, k0 + lk, K, a_heads, L, D));
-    if (n0 + lr < N && k0 + lk < K)
-      rw = *reinterpret_cast<const float4*>(w + (size_t)(n0 + lr) * K + k0 + lk);
-  };
-  auto store = [&](int s, const float4& ra, const float4& rw) {
-    As[s][lk + 0][lr] = ra.x;
-    As[s][lk + 1][lr] = ra.y;
-    As[s][lk + 2][lr] = ra.z;
-    As[s][lk + 3][lr] = ra.w;
-    Ws[s][lk + 0][lr] = rw.x;
-    Ws[s][lk + 1][lr] = rw.y;
-    Ws[s][lk + 2][lr] = rw.z;
-    Ws[s][lk + 3][lr] = rw.w;
-  };
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  float4 ra, rw;
-  load(0, ra, rw);
-  store(0, ra, rw);
-  __syncthreads();
-  const int nk = (K + kDepth - 1) / kDepth;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt & 1;
-    if (kt + 1 < nk) load((kt + 1) * kDepth, ra, rw);
-#pragma unroll
-    for (int kk = 0; kk < kDepth; ++kk) {
-      float av[8], wv[8];
-      *reinterpret_cast<float4*>(av) = *reinterpret_cast<const float4*>(&As[s][kk][ty * 4]);
-      *reinterpret_cast<float4*>(av + 4) =
-          *reinterpret_cast<const float4*>(&As[s][kk][64 + ty * 4]);
-      *reinterpret_cast<float4*>(wv) = *reinterpret_cast<const float4*>(&Ws[s][kk][tx * 4]);
-      *reinterpret_cast<float4*>(wv + 4) =
-          *reinterpret_cast<const float4*>(&Ws[s][kk][64 + tx * 4]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+// lse[z][r] = log sum_c exp(s[z][r, c]) over the cols keys of each row of
+// the scores (natural log; -inf for a row of -inf), and P = exp(s - lse) in
+// place over those keys. A warp a row, three passes over it (max, sum,
+// P): the first reads device memory, the other two the row as the first
+// left it in L1.
+__global__ void __launch_bounds__(256)
+    attn_rows_f32(float* __restrict__ s, float* __restrict__ lse, int rows, int cols, int lds,
+                  long long ss, long long sl) {
+  const int z = blockIdx.y, row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  float* sr = s + z * ss + (size_t)row * lds;
+  auto load = [&](int c) {  // keys c .. c + 3, -inf past cols (lds % 4 == 0: in the row)
+    float4 x = *reinterpret_cast<const float4*>(sr + c);
+    if (c + 4 > cols) {
+      x.w = -INFINITY;
+      if (c + 2 >= cols) x.z = -INFINITY;
+      if (c + 1 >= cols) x.y = -INFINITY;
     }
-    if (kt + 1 < nk) store(s ^ 1, ra, rw);
-    __syncthreads();
+    return x;
+  };
+  float m = -INFINITY;
+  for (int c = 4 * lane; c < cols; c += 128) {
+    const float4 x = load(c);
+    m = fmaxf(m, fmaxf(fmaxf(x.x, x.y), fmaxf(x.z, x.w)));
   }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = m0 + (i / 4) * 64 + ty * 4 + (i % 4);
-    if (r >= M) continue;
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int c = n0 + hh * 64 + tx * 4;
-      if (c >= N) continue;
-      float4 y = make_float4(acc[i][4 * hh], acc[i][4 * hh + 1], acc[i][4 * hh + 2],
-                             acc[i][4 * hh + 3]);
-      if (bias != nullptr) {
-        const float4 bv = *reinterpret_cast<const float4*>(bias + c);
-        y.x += bv.x;
-        y.y += bv.y;
-        y.z += bv.z;
-        y.w += bv.w;
-      }
-      if (res != nullptr) {
-        const float4 xv = *reinterpret_cast<const float4*>(res + (size_t)r * N + c);
-        y.x += xv.x;
-        y.y += xv.y;
-        y.z += xv.z;
-        y.w += xv.w;
-      }
-      *reinterpret_cast<float4*>(out + at(r, c, N, out_heads, L, D)) = y;
+  m = warp_max(m);
+  const float z0 = m == -INFINITY ? 0.f : m;
+  float l = 0.f;
+  for (int c = 4 * lane; c < cols; c += 128) {
+    const float4 x = load(c);
+    l += expf(x.x - z0) + expf(x.y - z0) + expf(x.z - z0) + expf(x.w - z0);
+  }
+  const float ls = z0 + logf(warp_sum(l));
+  if (lane == 0) lse[z * sl + row] = ls;
+  const float zp = ls == -INFINITY ? INFINITY : ls;  // p = 0 on a row of -inf
+  for (int c = 4 * lane; c < cols; c += 128) {
+    const float4 x = load(c);
+    const float4 y = make_float4(expf(x.x - zp), expf(x.y - zp), expf(x.z - zp), expf(x.w - zp));
+    if (c + 4 <= cols) {
+      *reinterpret_cast<float4*>(sr + c) = y;
+    } else {
+      sr[c] = y.x;
+      if (c + 1 < cols) sr[c + 1] = y.y;
+      if (c + 2 < cols) sr[c + 2] = y.z;
     }
   }
 }
@@ -1021,25 +827,6 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 bool bad_attn(int B, int H, int Lq, int Lk, int D, int max_d) {
   return B <= 0 || H <= 0 || (long long)B * H > 65535 || Lq <= 0 || Lk <= 0 || D <= 0 ||
          D % 4 || D > max_d;
-}
-
-dim3 attn_grid(int rows, int BH) { return dim3((rows + kRows - 1) / kRows, BH); }
-
-constexpr int kStaged = kWarps * kRowsPerWarp * kTileKeys;  // one staged (p or ds) array
-
-constexpr size_t fwd_bytes(int D) {
-  return (size_t)(kRows * D + kTileKeys * lane_pitch(D) + kTileKeys * D + kStaged) * 4;
-}
-
-constexpr int kFfmaNC = 16;  // the FFMA body's columns a lane owns: D <= 512
-
-int fwd_ffma(const float* q, const float* k, const float* v, const float* bias, float* out,
-             float* lse, int B, int H, int Lq, int Lk, int D, float scale, cudaStream_t s) {
-  static const cudaError_t err = allow_smem(flash_fwd_f32<kFfmaNC>, fwd_bytes(32 * kFfmaNC));
-  if (err != cudaSuccess) return (int)err;
-  flash_fwd_f32<kFfmaNC><<<attn_grid(Lq, B * H), kAttnThreads, fwd_bytes(D), s>>>(
-      q, k, v, bias, out, lse, H, Lq, Lk, D, scale);
-  return (int)cudaGetLastError();
 }
 
 template <int DN, int WGS>
@@ -1095,34 +882,35 @@ int bwd_dkv(const float* q, const float* k, const float* v, const float* g, cons
 
 // q (B, H, Lq, D), k/v (B, H, Lk, D), out like q, contiguous f32 with
 // 16-byte aligned rows; bias (B, Lk) f32 or null; lse (B, H, Lq) f32 or
-// null. D % 4 == 0, D <= 512.
+// null. D % 4 == 0, D <= 160 (past it the forward is the three launches of
+// the wrapper, whose scratch comes from the caller's allocator).
 extern "C" int mvldm_f32_flash_fwd(const void* q, const void* k, const void* v,
                                    const void* bias, void* out, void* lse, int B, int H, int Lq,
                                    int Lk, int D, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bad_attn(B, H, Lq, Lk, D, 512)) return (int)cudaErrorInvalidValue;
+  if (bad_attn(B, H, Lq, Lk, D, 160)) return (int)cudaErrorInvalidValue;
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
   const auto* vf = static_cast<const float*>(v);
   const auto* bf = static_cast<const float*>(bias);
   auto* of = static_cast<float*>(out);
   auto* lf = static_cast<float*>(lse);
-  switch (D <= 160 ? split_dn(D) : 0) {
+  switch (split_dn(D)) {
     case 16: return fwd_split<16>(qf, kf, vf, bf, of, lf, B, H, Lq, Lk, D, scale, s);
     case 40: return fwd_split<40>(qf, kf, vf, bf, of, lf, B, H, Lq, Lk, D, scale, s);
     case 64: return fwd_split<64>(qf, kf, vf, bf, of, lf, B, H, Lq, Lk, D, scale, s);
     case 80: return fwd_split<80>(qf, kf, vf, bf, of, lf, B, H, Lq, Lk, D, scale, s);
-    case 160: return fwd_split<160>(qf, kf, vf, bf, of, lf, B, H, Lq, Lk, D, scale, s);
-    default: return fwd_ffma(qf, kf, vf, bf, of, lf, B, H, Lq, Lk, D, scale, s);
+    default: return fwd_split<160>(qf, kf, vf, bf, of, lf, B, H, Lq, Lk, D, scale, s);
   }
 }
 
 // The dynamic shared memory of the forward's instance for Lq queries of
-// head dim D (bytes), or cudaErrorInvalidValue.
+// head dim D (bytes): the flash kernel's up to D = 160, the GEMM tile's past
+// it (D <= 512), or cudaErrorInvalidValue.
 extern "C" int mvldm_f32_flash_fwd_smem(int Lq, int D, int* smem) {
   if (Lq <= 0 || D <= 0 || D % 4 || D > 512) return (int)cudaErrorInvalidValue;
   const int dn = split_dn(D);
-  *smem = (int)(D > 160 ? fwd_bytes(D) : fwd_split_bytes(dn, fwd_wgs(dn, Lq)));
+  *smem = (int)(D > 160 ? f32_gemm::kSmemBytes : fwd_split_bytes(dn, fwd_wgs(dn, Lq)));
   return 0;
 }
 
@@ -1205,23 +993,91 @@ extern "C" int mvldm_f32_layer_norm(const void* x, const void* gamma, const void
   return (int)cudaGetLastError();
 }
 
-// out (M, N) = A W^T (+ bias) (+ res), see gemm_f32. N, K and (with heads)
-// D multiples of 4; every pointer 16-byte aligned.
+// out (M, N) = A W^T (+ bias) (+ res); A (M, K) row-major or, with a_heads,
+// (M / L, a_heads, L, D); W (N, K) row-major (a torch Linear weight); out
+// (M, N) row-major or, with out_heads, (M / L, out_heads, L, D) (no
+// residual then); res (M, N). N, K and (with heads) D multiples of 4; every
+// pointer 16-byte aligned.
 extern "C" int mvldm_f32_gemm(const void* a, const void* w, const void* bias, const void* res,
                               void* out, int M, int N, int K, int a_heads, int out_heads, int L,
                               int D, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || N % 4 || K % 4 || (M + kTile - 1) / kTile > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (M <= 0 || N <= 0 || K <= 0 || N % 4 || K % 4) return (int)cudaErrorInvalidValue;
   if ((a_heads || out_heads) && (L <= 0 || D <= 0 || D % 4 || M % L))
     return (int)cudaErrorInvalidValue;
   if ((a_heads && a_heads * D != K) || (out_heads && out_heads * D != N))
     return (int)cudaErrorInvalidValue;
   if (out_heads && res != nullptr) return (int)cudaErrorInvalidValue;
-  dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
-  gemm_f32<<<grid, kGemmThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<const float*>(res), static_cast<float*>(out),
-      M, N, K, a_heads, out_heads, L, D);
+  f32_gemm::Args p = {};
+  p.a = static_cast<const float*>(a);
+  p.b = static_cast<const float*>(w);
+  p.bias = static_cast<const float*>(bias);
+  p.res = static_cast<const float*>(res);
+  p.out = static_cast<float*>(out);
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.lda = p.ldb = K;
+  p.ldo = N;
+  p.bias_div = 1;
+  p.alpha = 1.f;
+  p.a_heads = a_heads;
+  p.out_heads = out_heads;
+  p.L = L;
+  p.D = D;
+  return (int)f32_gemm::launch<0>(p, 1, static_cast<cudaStream_t>(stream));
+}
+
+// batch products out[z] = alpha A[z] B[z] (+ bias row (z + bias_z0) /
+// bias_div, bias_ld apart): A[z] (M, K) rows lda apart at a + z sa; B[z]
+// (N, K) rows ldb apart at b + z sb or, with b_kn, (K, N); out[z] (M, N)
+// rows ldo apart at out + z so. Any K; lda, ldb, ldo (and with b_kn N)
+// multiples of 4, the matrices 16-byte aligned.
+extern "C" int mvldm_f32_gemm_batched(const void* a, const void* b, const void* bias, void* out,
+                                      int batch, int M, int N, int K, int lda, int ldb, int ldo,
+                                      long long sa, long long sb, long long so, int b_kn,
+                                      int bias_div, int bias_z0, int bias_ld, float alpha,
+                                      void* stream) {
+  if (batch <= 0 || M <= 0 || N <= 0 || K <= 0 || lda < K || ldo < N || lda % 4 || ldb % 4 ||
+      ldo % 4 || sa % 4 || sb % 4 || so % 4 || ldb < (b_kn ? N : K) || (b_kn && N % 4) ||
+      (bias != nullptr && (bias_div <= 0 || bias_z0 < 0 || bias_ld < N)))
+    return (int)cudaErrorInvalidValue;
+  f32_gemm::Args p = {};
+  p.a = static_cast<const float*>(a);
+  p.b = static_cast<const float*>(b);
+  p.bias = static_cast<const float*>(bias);
+  p.out = static_cast<float*>(out);
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.lda = lda;
+  p.ldb = ldb;
+  p.ldo = ldo;
+  p.sa = sa;
+  p.sb = sb;
+  p.so = so;
+  p.bias_div = bias_div;
+  p.bias_z0 = bias_z0;
+  p.bias_ld = bias_ld;
+  p.alpha = alpha;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(b_kn ? f32_gemm::launch<1>(p, batch, s) : f32_gemm::launch<0>(p, batch, s));
+}
+
+// The GEMM tile's dynamic shared memory (bytes).
+extern "C" int mvldm_f32_gemm_smem(int* smem) {
+  *smem = (int)f32_gemm::kSmemBytes;
+  return 0;
+}
+
+// The row pass over batch score blocks s[z] (rows x cols, rows lds apart, at
+// s + z ss): lse[z][r] at lse + z sl + r, and P in place (see
+// attn_rows_f32). lds a multiple of 4 and s 16-byte aligned.
+extern "C" int mvldm_f32_attn_rows(void* s, void* lse, int batch, int rows, int cols, int lds,
+                                   long long ss, long long sl, void* stream) {
+  if (batch <= 0 || batch > 65535 || rows <= 0 || cols <= 0 || lds < cols || lds % 4 || ss % 4)
+    return (int)cudaErrorInvalidValue;
+  attn_rows_f32<<<dim3((rows + 7) / 8, batch), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(s), static_cast<float*>(lse), rows, cols, lds, ss, sl);
   return (int)cudaGetLastError();
 }
 

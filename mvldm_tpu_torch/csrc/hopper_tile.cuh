@@ -473,6 +473,18 @@ __device__ __forceinline__ uint64_t desc_tf32(const float* tile, int rg0, int kk
   return make_desc(tile + (rg0 * (KP / 4) + 2 * kk) * 32, 128, KP * 32);
 }
 
+// The 128-byte swizzled f32 tile (the GEMM tile's): rows of 32 f32 (128
+// bytes) in 1024-byte atoms of 8 rows, the 16-byte chunk c (columns 4c to
+// 4c + 3) of row r stored at chunk c ^ (r % 8) of its row; the tile starts
+// 1024-byte aligned. Read K-major: stride byte offset 1024 (next 8 rows); an
+// 8-deep k step advances the start by 32 bytes inside the atom.
+__device__ __forceinline__ int sw128_f32(int r, int c) { return r * 32 + ((c ^ r) & 7) * 4; }
+
+// Descriptor of k step kk of rows [row0, ...) of a swizzled f32 tile.
+__device__ __forceinline__ uint64_t desc_sw128_f32(const float* tile, int row0, int kk) {
+  return make_desc_sw128(tile + row0 * 32 + kk * 8, 16, 1024);
+}
+
 // The m64nNk8 tf32 A fragment holds columns t and t + 4 (t = lane % 4) of
 // the warp's rows g and g + 8 in a[0], a[2] and a[1], a[3]; a 64-row f32
 // accumulator holds columns 2t and 2t + 1 of n8 block kk in d[4kk ..]. So
@@ -628,13 +640,35 @@ __device__ __forceinline__ void wgmma_tf32_rs_n160(float* d, const uint32_t* a, 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
+__device__ __forceinline__ void wgmma_tf32_ss_n128(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_tf32_ss(float* d, uint64_t da, uint64_t db, int acc) {
-  static_assert(N == 8 || N == 16 || N == 32 || N == 64, "wgmma_tf32_ss: N");
+  static_assert(N == 8 || N == 16 || N == 32 || N == 64 || N == 128, "wgmma_tf32_ss: N");
   if constexpr (N == 8) wgmma_tf32_ss_n8(d, da, db, acc);
   else if constexpr (N == 16) wgmma_tf32_ss_n16(d, da, db, acc);
   else if constexpr (N == 32) wgmma_tf32_ss_n32(d, da, db, acc);
-  else wgmma_tf32_ss_n64(d, da, db, acc);
+  else if constexpr (N == 64) wgmma_tf32_ss_n64(d, da, db, acc);
+  else wgmma_tf32_ss_n128(d, da, db, acc);
 }
 
 template <int N>

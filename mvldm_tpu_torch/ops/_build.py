@@ -22,7 +22,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -86,10 +86,18 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[float, str]]:
             failed.append(f"--- nvcc {name}.cu (rc {proc.returncode}) ---\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            _lib_path(name).with_suffix(".log").write_text(log)
             os.replace(tmp, _lib_path(name))
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return logs
+
+
+def build_log(name: str) -> Optional[str]:
+    """nvcc's log of the current build of ``csrc/<name>.cu`` (``-Xptxas=-v``:
+    registers and spills), kept beside the library; None before a build."""
+    path = _lib_path(name).with_suffix(".log")
+    return path.read_text() if path.exists() else None
 
 
 def kernel_name(mangled: str) -> str:

@@ -28,7 +28,7 @@ Each of the TPU tool's four Pallas kernels has here
   against the plain version there). It times the kernel on the card (CUDA
   graph replay between two events, :func:`measure.time_ms`), prints the
   TPU tool's line with the bound of the route the kernel takes (the
-  products it runs at their tensor-core or FFMA peak, or its bytes), the
+  products it runs at their tensor-core peak, or its bytes), the
   share of the bound, the exp floor of the attention probes and a library
   call's time (cuBLAS, SDPA, ``torch.exp``; for the f32-dot flash also SDPA
   on f32 copies, the same function; timed as yardsticks only), and returns
@@ -167,8 +167,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Hand-written (m, k) @ (k, n), f32 accumulation, output in the inputs'
     dtype (``csrc/micro_matmul.cu``): bf16 on ``wgmma`` through the fused
     blocks' GEMM tile (``csrc/gemm_tile.cuh``, B read MN-major as (K, N)),
-    f32 on register-blocked FFMA. b is row-major as given; n and k multiples
-    of 8."""
+    f32 as split TF32 on ``wgmma`` through the f32 route's GEMM tile
+    (``csrc/f32_gemm_tile.cuh``, B stored transposed on its way in). b is
+    row-major as given; n and k multiples of 8."""
     what = "matmul"
     _check_cuda(what, (torch.bfloat16, torch.float32), a, b)
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0] or a.dtype != b.dtype:
@@ -181,6 +182,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     _launch_matmul(_build.load("micro_matmul", _MATMUL_SIG), a, b, out)
     matmul.launches += 1
+    if a.dtype == torch.float32:  # its split-TF32 route (the f32 GEMM tile), counted apart too
+        matmul.f32_launches += 1
     return out
 
 
@@ -195,6 +198,7 @@ def _launch_matmul(lib, a, b, out) -> None:
 
 
 matmul.launches = 0
+matmul.f32_launches = 0
 
 
 def _check_attn(what: str, q, k, v, dims) -> None:
@@ -329,12 +333,15 @@ class Case(NamedTuple):
 
 
 def matmul_work(m: int, k: int, dtype: torch.dtype) -> Work:
+    """bf16 on bf16 ``wgmma``; f32 as split TF32 on ``wgmma``, three TF32
+    products for each f32 one (:func:`measure.f32_gemm_bounds`)."""
     flops = 2.0 * m * k * k
     size = torch.empty((), dtype=dtype).element_size()
-    bf16 = dtype == torch.bfloat16
-    peak = measure.PEAK_BF16_FLOPS if bf16 else measure.PEAK_FP32_FLOPS
-    return Work(flops, flops, size * (2 * m * k + k * k), peak,
-                route="bf16 wgmma" if bf16 else "f32 FFMA")
+    moved = size * (2 * m * k + k * k)
+    if dtype == torch.bfloat16:
+        return Work(flops, flops, moved, measure.PEAK_BF16_FLOPS, route="bf16 wgmma")
+    return Work(flops, 3 * flops, moved, measure.PEAK_TF32_FLOPS,
+                route="f32 as split TF32 wgmma (3 TF32 products)")
 
 
 def attn_work(b: int, h: int, l: int, d: int, dp: int, peak: float, products: int = 2,
@@ -522,10 +529,16 @@ def matmul_probe(m: int, k: int, dtype: torch.dtype, bm: int = 256, device="cuda
     tile is 128 x 64, the f32 one 128 x 128. ``check`` as in
     :func:`measure_case`, in every probe."""
     _require_cuda(device)
-    r = measure_case(matmul_case(m, k, dtype, device), check)
+    case = matmul_case(m, k, dtype, device)
+    r = measure_case(case, check)
     name = _dtype_name(dtype)
+    library = "cuBLAS"
+    if dtype == torch.float32:  # the FFMA bound beside the split-TF32 one
+        r["ffma_bound_ms"] = measure.f32_gemm_bounds(m, k, k, case.work.bytes)["ffma_bound_ms"]
+        library = "cuBLAS f32 (TF32 off)"
+    r["library"] = library
     print(f"  matmul {m}x{k}x{k} {name}: {r['ms']:.4f} ms  {r['useful_tflops']:.1f} TF/s"
-          + _tail(r, "cuBLAS"), flush=True)
+          + _tail(r, library), flush=True)
     return dict(probe="matmul", m=m, k=k, dtype=name, **r)
 
 

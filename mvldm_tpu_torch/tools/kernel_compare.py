@@ -2,7 +2,8 @@
 in turns, on one NVIDIA GPU.
 
     python -m mvldm_tpu_torch.tools.kernel_compare --other DIR
-        [--kernel bwd|fwd|gemm|micro|f32bwd|f32fwd|exp] [--rounds N] [--only TEXT]
+        [--kernel bwd|fwd|gemm|micro|f32bwd|f32fwd|f32gemm|exp] [--rounds N]
+        [--only TEXT]
 
 DIR is another checkout of this repository, for example the parent commit
 unpacked with ``git archive`` into an ignored directory such as
@@ -41,7 +42,17 @@ replay). One JSON line per shape and launch, then the card as
   shape of sampling and training (:func:`fwd_shapes`, the fill and the
   D = 512 VAE included) in f32, each build's relative L2 for out and lse
   against the plain version in f32 (TF32 off), SDPA in f32 and its
-  backend, the 3xTF32 and FFMA bounds, the instance's shared memory;
+  backend, the 3xTF32 and FFMA bounds, the instance's shared memory (past
+  head dim 160 this tree runs the GEMM-tile route; a build whose flash
+  entry still takes those head dims runs that entry);
+* ``f32gemm``: every f32 GEMM launch of the fused blocks
+  (``f32_route.cu``'s ``mvldm_f32_gemm``: one of the three q/k/v
+  projections, the output projection, W1 + b1 and W2 + b2 + x at
+  :data:`ATTN_BLOCK_SHAPES` and :data:`FF_BLOCK_SHAPES`, C = 320 and 640)
+  and the matmul probe's f32 route (``micro_matmul.cu``) at
+  :data:`MATMUL_SHAPES`, each build's relative L2 against the product in
+  float64, cuBLAS f32 with TF32 off, the 3xTF32 and FFMA bounds, each
+  build's registers and spills (ptxas) and this tree's shared memory;
 * ``exp``: the exp probe (``micro_exp.cu``) at :data:`EXP_SHAPES`, each
   build within 1e-6 relative of exp in float64, ``torch.exp`` and the
   byte bound beside it.
@@ -55,7 +66,7 @@ import json
 import subprocess
 import sys
 from pathlib import Path
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -136,15 +147,20 @@ EXP_SHAPES = [(1024, 1024), (4096, 4096)]
 SOURCES = {"bwd": ("flash_attn_bwd",), "fwd": ("flash_attn_fwd",),
            "gemm": ("fused_ln_attn", "fused_ln_geglu_ff", "micro_matmul"),
            "micro": ("micro_attn",), "f32bwd": ("f32_route",), "f32fwd": ("f32_route",),
-           "exp": ("micro_exp",)}
+           "f32gemm": ("f32_route", "micro_matmul"), "exp": ("micro_exp",)}
 SIGNATURES = {"flash_attn_bwd": attn._BWD_SIGNATURES, "flash_attn_fwd": attn._FWD_SIGNATURES,
               "fused_ln_attn": fused_attn._SIGNATURES, "fused_ln_geglu_ff": fused_ff._SIGNATURES,
               "micro_matmul": micro._MATMUL_SIG, "micro_attn": micro._ATTN_SIG,
               "micro_exp": micro._EXP_SIG, "f32_route": f32_route._SIGNATURES}
 # The entries the comparison calls in another checkout's build, where that
-# source holds entries this tree added since (f32_route.cu's smem queries).
+# source holds entries this tree added since (f32_route.cu's smem queries),
+# and those it declares only where that build has them (the forward's route
+# past head dim 160).
 OTHER_ENTRIES = {"f32_route": ("mvldm_f32_flash_fwd", "mvldm_f32_flash_bwd_dq",
-                               "mvldm_f32_flash_bwd_dkv")}
+                               "mvldm_f32_flash_bwd_dkv", "mvldm_f32_gemm")}
+OPTIONAL_ENTRIES = {"f32_route": ("mvldm_f32_gemm_batched", "mvldm_f32_attn_rows")}
+# nvcc's log of each build made by this process: {"this" | "other": {source: log}}.
+BUILD_LOGS: Dict[str, Dict[str, str]] = {"this": {}, "other": {}}
 
 
 def attn_inputs(gen, b, h, l, d, with_bias):
@@ -184,7 +200,14 @@ def build_other(checkout: Path, names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc {name}.cu of {checkout} failed:\n{log}")
-    return {n: _build.open_lib(out_dir / f"lib{n}_other.so", other_signatures(n)) for n in names}
+        BUILD_LOGS["other"][name] = log
+    libs = {n: _build.open_lib(out_dir / f"lib{n}_other.so", other_signatures(n)) for n in names}
+    for n, lib in libs.items():
+        for fn in OPTIONAL_ENTRIES.get(n, ()):
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = SIGNATURES[n][fn]
+                getattr(lib, fn).restype = ctypes.c_int
+    return libs
 
 
 def other_signatures(name: str) -> Dict[str, list]:
@@ -197,6 +220,7 @@ def load_libs(kernel: str, other: Path) -> Dict[str, Dict[str, ctypes.CDLL]]:
     """{"this": {source: lib}, "other": {source: lib}} for ``kernel``."""
     names = SOURCES[kernel]
     _build.build(names)
+    BUILD_LOGS["this"].update({n: _build.build_log(n) for n in names})
     return {"this": {n: _build.load(n, SIGNATURES[n]) for n in names},
             "other": build_other(other, names)}
 
@@ -376,11 +400,25 @@ def sdpa_f32(q, k, v, bias, iters: int) -> dict:
                     sdpa_f32_backend=measure.sdpa_backend(fwd))
 
 
+def f32_fwd(lib, q, k, v, bias, out, lse, scale: float) -> None:
+    """The f32 forward of ``lib``: this tree's (:func:`f32_route._launch_fwd`,
+    the route past head dim 160), or, for a build without the route's
+    entries, its flash entry at every head dim (which took up to 512)."""
+    if q.shape[-1] <= f32_route.MAX_FLASH_HEAD_DIM or hasattr(lib, "mvldm_f32_attn_rows"):
+        f32_route._launch_fwd(q, k, v, bias, out, lse, scale, lib)
+        return
+    b, h, lq, d = q.shape
+    _build.check(lib.mvldm_f32_flash_fwd(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), f32_route._optr(bias), _build.ptr(out),
+        f32_route._optr(lse), b, h, lq, k.shape[2], d, float(scale),
+        _build.stream_ptr(q.device)), f"mvldm_f32_flash_fwd (head dim {d})")
+
+
 def f32_fwd_errors(lib, q, k, v, bias, ref_out, ref_lse) -> dict:
     """Relative L2 of ``lib``'s f32 forward, out and lse, against the plain
     version's."""
     out, lse = torch.empty_like(q), torch.empty(q.shape[:3], device=q.device)
-    f32_route._launch_fwd(q, k, v, bias, out, lse, attn._scale(q, None), lib)
+    f32_fwd(lib, q, k, v, bias, out, lse, attn._scale(q, None))
     return dict(out=rel_l2(out, ref_out), lse=rel_l2(lse, ref_lse))
 
 
@@ -401,8 +439,7 @@ def compare_f32fwd(libs, args, card: str) -> None:
         out = torch.empty_like(q)
         lse = torch.empty(q.shape[:3], device="cuda") if with_lse else None
         iters = 10 if l >= 1024 else 50
-        times = in_turns({name: (lambda lib=lib: f32_route._launch_fwd(q, k, v, bias, out, lse,
-                                                                       scale, lib))
+        times = in_turns({name: (lambda lib=lib: f32_fwd(lib, q, k, v, bias, out, lse, scale))
                           for name, lib in libs.items()}, args.rounds, iters)
         rec = dict(kernel="f32fwd", shape=label, B=b, H=h, L=l, D=d, bias=with_bias,
                    lse=with_lse, smem_bytes=f32_route.fwd_smem_bytes(l, d),
@@ -518,6 +555,8 @@ class GemmCall(NamedTuple):
     library: Callable[[], object]
     flops: float
     moved: int
+    plain: Optional[Callable[[], object]] = None  # the f32 calls' plain version
+    mnk: Optional[Tuple[int, int, int]] = None    # and their (M, N, K)
 
 
 def _bf16(gen, *shape, scale=1.0):
@@ -667,6 +706,135 @@ def compare_gemm(libs, args, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# -------------------------------------------------------------- f32gemm
+
+def _f32(t):
+    """An f32 copy that keeps a transposed weight transposed."""
+    return t.t().float().t() if t.dim() == 2 and not t.is_contiguous() else t.float()
+
+
+def _f32_gemm_call(label, what, run, out, ref_args, ref_kw, library, moved,
+                   source="f32_route", entry="mvldm_f32_gemm") -> GemmCall:
+    """An f32 GEMM launch: ``run(lib)`` writes ``out``; its function is
+    :func:`f32_route.gemm_f32_reference` of ``ref_args`` and ``ref_kw``
+    (``refs``: in float64; ``plain``: the plain version in f32)."""
+    ref = f32_route.gemm_f32_reference(*(t if t is None else t.double() for t in ref_args),
+                                       **ref_kw)
+    b = ref_args[1]
+    n, k = (b.shape[1], b.shape[0]) if ref_kw.get("b_kn") else b.shape
+    m = ref.numel() // n
+    return GemmCall(entry, source, f"{label} {what}", run, [out], [ref], None, library,
+                    2.0 * m * n * k, moved,
+                    lambda: f32_route.gemm_f32_reference(*ref_args, **ref_kw), (m, n, k))
+
+
+def f32_block_gemms(gen, kind: str, label: str, shape) -> List[GemmCall]:
+    """The f32 route's GEMM launches of one fused block (kind "attn": one of
+    the three q/k/v projections, written head-split, and the head-merging
+    output projection + b_o + x; "ff": W1 + b1 and W2 + b2 + x) on f32
+    copies of the block's seeded inputs, each with the cuBLAS product of the
+    same operands."""
+    def ln(x, g, b):
+        return fused_attn._layer_norm(x, g, b, 1e-6).reshape(-1, x.shape[-1])
+
+    calls = []
+    if kind == "attn":
+        n, l, c, heads, d = shape
+        x, g, b, wq, _, _, wo, bo = (_f32(t) for t in attn_block_inputs(gen, n, l, c, heads, d))
+        m, hd = n * l, heads * d
+        xn, wq_l, wo_l = ln(x, g, b), wq.t(), wo.t()
+        q = torch.empty((n, heads, l, d), device="cuda")
+        calls.append(_f32_gemm_call(
+            label, "q/k/v projection (each of 3)",
+            lambda lib: f32_route._gemm(lib, xn, wq_l, q, out_heads=heads, l=l, d=d), q,
+            (xn, wq_l), dict(out_heads=heads, l=l), lambda: F.linear(xn, wq_l),
+            measure.nbytes(xn, wq_l, q)))
+        o = torch.randn((n, heads, l, d), generator=gen, device="cuda")
+        om = o.transpose(1, 2).reshape(m, hd)
+        x2, y = x.reshape(m, c), torch.empty((m, c), device="cuda")
+        calls.append(_f32_gemm_call(
+            label, "output projection + b_o + x",
+            lambda lib: f32_route._gemm(lib, o, wo_l, y, bo, x2, a_heads=heads, l=l, d=d), y,
+            (o, wo_l, bo, x2), {}, lambda: F.linear(om, wo_l, bo),
+            measure.nbytes(o, wo_l, bo, x2, y)))
+    else:
+        n, l, c = shape
+        x, g, b, w1, b1, w2, b2 = (_f32(t) for t in ff_block_inputs(gen, n, l, c))
+        m, f = n * l, 4 * c
+        xn, w1_l, w2_l = ln(x, g, b), w1.t(), w2.t()
+        h = torch.empty((m, 2 * f), device="cuda")
+        calls.append(_f32_gemm_call(
+            label, "W1 + b1", lambda lib: f32_route._gemm(lib, xn, w1_l, h, b1), h,
+            (xn, w1_l, b1), {}, lambda: F.linear(xn, w1_l, b1), measure.nbytes(xn, w1_l, b1, h)))
+        act = torch.randn((m, f), generator=gen, device="cuda") * 0.5
+        x2, y = x.reshape(m, c), torch.empty((m, c), device="cuda")
+        calls.append(_f32_gemm_call(
+            label, "W2 + b2 + x", lambda lib: f32_route._gemm(lib, act, w2_l, y, b2, x2), y,
+            (act, w2_l, b2, x2), {}, lambda: F.linear(act, w2_l, b2),
+            measure.nbytes(act, w2_l, b2, x2, y)))
+    return calls
+
+
+def f32_matmul_call(m: int, k: int, gen) -> GemmCall:
+    """The matmul probe's f32 route at (m, k) @ (k, k)."""
+    a = torch.randn((m, k), generator=gen, device="cuda")
+    bm = torch.randn((k, k), generator=gen, device="cuda")
+    out = torch.empty((m, k), device="cuda")
+    return _f32_gemm_call(f"matmul {m}x{k}x{k}", "f32",
+                          lambda lib: micro._launch_matmul(lib, a, bm, out), out, (a, bm),
+                          dict(b_kn=True), lambda: torch.matmul(a, bm),
+                          measure.nbytes(a, bm, out), "micro_matmul", "mvldm_micro_matmul")
+
+
+def f32_gemm_calls(gen):
+    """Every f32 GEMM launch at every fused-block shape and the probe's f32
+    cases."""
+    for label, n, l, c, heads, d in ATTN_BLOCK_SHAPES:
+        yield from f32_block_gemms(gen, "attn", label, (n, l, c, heads, d))
+    for label, n, l, c in FF_BLOCK_SHAPES:
+        yield from f32_block_gemms(gen, "ff", label, (n, l, c))
+    for m, k in MATMUL_SHAPES:
+        yield f32_matmul_call(m, k, gen)
+
+
+def gemm_instances(log: Optional[str]) -> list:
+    """The f32 GEMM instances of an nvcc log (ptxas's registers and
+    spills): the split-TF32 tile's and the FFMA bodies it replaced."""
+    if log is None:
+        return []
+    return [r for r in _build.ptxas_report(log)
+            if r["kernel"].startswith(("gemm_tf32x3", "gemm_f32", "matmul_f32"))]
+
+
+def compare_f32gemm(libs, args, card: str) -> None:
+    gen = torch.Generator("cuda").manual_seed(0)
+    smem = f32_route.gemm_smem_bytes()
+    for call in f32_gemm_calls(gen):
+        label = f"{call.entry} {call.shape}"
+        if args.only and not any(text in label for text in args.only):
+            continue
+        errs = {}
+        for name, ls in libs.items():
+            call.run(ls[call.source])
+            errs[name] = rel_l2(call.outs[0], call.refs[0])
+        times = in_turns({name: (lambda lib=ls[call.source]: call.run(lib))
+                          for name, ls in libs.items()}, args.rounds, None)
+        with measure.no_tf32():
+            cublas_ms = measure.time_ms(call.library)
+        m, n, k = call.mnk
+        rec = dict(kernel="f32gemm", entry=call.entry, shape=call.shape, M=m, N=n, K=k,
+                   **measure.f32_gemm_bounds(m, n, k, call.moved), cublas_f32_ms=cublas_ms,
+                   cublas_precision="f32, TF32 off", smem_bytes=smem, card=card)
+        for name, ts in times.items():
+            rec[name] = dict(ms=_mean(ts), rel_l2=errs[name], turns=ts,
+                             ptxas=gemm_instances(BUILD_LOGS[name].get(call.source)))
+        rec["this_over_other"] = rec["this"]["ms"] / rec["other"]["ms"]
+        rec["this_over_cublas"] = rec["this"]["ms"] / cublas_ms
+        rec["this_share_of_bound"] = rec["bound_ms"] / rec["this"]["ms"]
+        print(json.dumps(rec), flush=True)
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- micro
 
 def micro_kernel(lib, probe: str, kw: dict) -> Callable[..., torch.Tensor]:
@@ -728,7 +896,8 @@ def main(argv=None) -> int:
     card = measure.card_line()
     libs = load_libs(args.kernel, args.other)
     {"bwd": compare_bwd, "fwd": compare_fwd, "gemm": compare_gemm, "micro": compare_micro,
-     "f32bwd": compare_f32bwd, "f32fwd": compare_f32fwd, "exp": compare_exp}[args.kernel](
+     "f32bwd": compare_f32bwd, "f32fwd": compare_f32fwd, "f32gemm": compare_f32gemm,
+     "exp": compare_exp}[args.kernel](
         libs, args, card)
     print(card, flush=True)
     return 0

@@ -201,6 +201,13 @@ def f32_bounds(flops: float, moved: int) -> dict:
                 ffma_bound_ms=bound(flops, moved, PEAK_FP32_FLOPS)[0])
 
 
+def f32_gemm_bounds(m: int, n: int, k: int, moved: int) -> dict:
+    """:func:`f32_bounds` of an f32 GEMM (M, K) x (K, N), 2 M N K flops:
+    three TF32 products of them at PEAK_TF32_FLOPS, or the bytes, with
+    ``ffma_bound_ms`` beside it."""
+    return f32_bounds(2.0 * m * n * k, moved)
+
+
 def f32_fwd_bounds(b: int, h: int, lq: int, lk: int, d: int, moved: int) -> dict:
     """:func:`f32_bounds` of the f32 attention forward (S = Q K^T and O = P
     V: two Lq x Lk x D products) on (B, H, Lq, Lk, D)."""

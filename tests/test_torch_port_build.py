@@ -33,6 +33,8 @@ def test_ptxas_report_reads_each_entry():
      "flash_bwd_dq_f32<40>"),
     ("_ZN45_GLOBAL__N__eeb25706_12_f32_route_cu_24bc386b9geglu_f32EPKfPfxi", "geglu_f32"),
     ("mvldm_f32_gemm", "mvldm_f32_gemm"),
+    ("_ZN8f32_gemm45_GLOBAL__N__eeb25706_12_f32_route_cu_24bc386b11gemm_tf32x3ILi1EEEvNS0_4ArgsE",
+     "gemm_tf32x3<1>"),
 ])
 def test_kernel_name(mangled, name):
     assert _build.kernel_name(mangled) == name
@@ -40,3 +42,13 @@ def test_kernel_name(mangled, name):
 
 def test_ptxas_report_of_an_empty_log():
     assert _build.ptxas_report("") == []
+
+
+def test_build_log_is_kept_beside_the_library(tmp_path, monkeypatch):
+    """nvcc's log of a build stays beside its library (the comparison tool
+    reads registers and spills from it after another process built it);
+    None before any build."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    assert _build.build_log("f32_route") is None
+    _build._lib_path("f32_route").with_suffix(".log").write_text(LOG)
+    assert _build.ptxas_report(_build.build_log("f32_route"))[1]["kernel"] == "gemm_f32"

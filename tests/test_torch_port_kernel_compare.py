@@ -10,7 +10,8 @@ from mvldm_tpu_torch.tools import bench_attn_micro as micro
 from mvldm_tpu_torch.tools import kernel_compare, measure
 
 
-@pytest.mark.parametrize("kernel", ["bwd", "fwd", "gemm", "micro", "f32bwd", "f32fwd", "exp"])
+@pytest.mark.parametrize("kernel", ["bwd", "fwd", "gemm", "micro", "f32bwd", "f32fwd", "f32gemm",
+                                    "exp"])
 def test_compare_tool_needs_a_card(capsys, kernel):
     """Every --kernel exits non-zero, with no result line, without a card."""
     assert kernel_compare.main(["--other", ".", "--kernel", kernel]) == 2
@@ -35,6 +36,42 @@ def test_fwd_shapes_cover_sampling_and_training():
     assert not any(s[6] for s in shapes[:n_sampling])
     assert all(s[6] for s in shapes[n_sampling:])
     assert {s[4] for s in shapes} == {40, 64, 80, 160, 512}
+
+
+def test_f32gemm_builds_the_f32_route_and_the_probe():
+    """``--kernel f32gemm`` builds both sources of f32 GEMM launches (the
+    fused blocks' in f32_route.cu, the probe's f32 route in
+    micro_matmul.cu), and another checkout's build declares the forward's
+    route entries only where it has them."""
+    assert kernel_compare.SOURCES["f32gemm"] == ("f32_route", "micro_matmul")
+    assert "mvldm_f32_gemm" in kernel_compare.other_signatures("f32_route")
+    assert set(kernel_compare.OPTIONAL_ENTRIES["f32_route"]).isdisjoint(
+        kernel_compare.other_signatures("f32_route"))
+    assert set(kernel_compare.OPTIONAL_ENTRIES["f32_route"]) <= set(
+        kernel_compare.SIGNATURES["f32_route"])
+
+
+# ptxas's report of a build with the split-TF32 tile and one of the FFMA
+# bodies it replaced (the other build of a comparison), and a bf16 kernel.
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN8f32_gemm12_GLOBAL__N_111gemm_tf32x3ILi1EEEvNS0_4ArgsE' for 'sm_90a'
+ptxas info    : Used 250 registers, used 1 barriers, 0 bytes smem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_18gemm_f32EPKfS1_S1_S1_Pfiiiiiii' for 'sm_90a'
+    48 bytes stack frame, 40 bytes spill stores, 60 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 8192 bytes smem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113attn_rows_f32EPfS0_iiixx' for 'sm_90a'
+ptxas info    : Used 32 registers
+"""
+
+
+def test_gemm_instances_reads_the_f32_gemm_kernels():
+    """The f32gemm lines carry each build's f32 GEMM instances from its nvcc
+    log: the split-TF32 tile's and the FFMA bodies', nothing else."""
+    got = kernel_compare.gemm_instances(PTXAS_LOG)
+    assert [r["kernel"] for r in got] == ["gemm_tf32x3<1>", "gemm_f32"]
+    assert got[0]["registers"] == 250 and got[0]["spill_stores"] == 0
+    assert (got[1]["spill_stores"], got[1]["spill_loads"], got[1]["static_smem"]) == (40, 60, 8192)
+    assert kernel_compare.gemm_instances(None) == []
 
 
 def test_gemm_shapes_are_the_fused_blocks_and_the_probe():
@@ -104,9 +141,11 @@ def test_f32bwd_shapes_are_the_training_shapes():
     assert set(kernel_compare.SIGNATURES["f32_route"]) >= {"mvldm_f32_flash_bwd_dq",
                                                             "mvldm_f32_flash_bwd_dkv"}
     # another checkout's f32_route.cu is declared with the entries the
-    # comparisons call (an older one has no shared-memory queries)
+    # comparisons call (an older one has no shared-memory queries; the f32
+    # GEMM comparison calls its mvldm_f32_gemm)
     assert set(kernel_compare.other_signatures("f32_route")) == {
-        "mvldm_f32_flash_fwd", "mvldm_f32_flash_bwd_dq", "mvldm_f32_flash_bwd_dkv"}
+        "mvldm_f32_flash_fwd", "mvldm_f32_flash_bwd_dq", "mvldm_f32_flash_bwd_dkv",
+        "mvldm_f32_gemm"}
     assert kernel_compare.other_signatures("flash_attn_bwd") == kernel_compare.SIGNATURES[
         "flash_attn_bwd"]
 

@@ -44,11 +44,15 @@ from mvldm_tpu_torch.ops.fused_attn import (
     fused_ln_self_attention,
     fused_ln_self_attention_reference,
 )
+from mvldm_tpu_torch.ops import f32_route
 from mvldm_tpu_torch.ops.f32_route import (
+    attention_rows_f32,
     flash_attention_bwd_f32,
     flash_attention_f32,
     fused_ln_geglu_ff_f32,
     fused_ln_self_attention_f32,
+    gemm_f32,
+    gemm_f32_reference,
 )
 from mvldm_tpu_torch.ops.fused_ff import fused_ln_geglu_ff, fused_ln_geglu_ff_reference
 from mvldm_tpu_torch.tools import bench_attn_micro as micro
@@ -742,7 +746,9 @@ def test_f32_fused_ln_geglu_ff(cuda, m, c):
 
 
 def test_f32_kernels_are_deterministic(cuda):
-    """No atomics, a fixed order of every sum: bit for bit across calls."""
+    """No atomics, a fixed order of every sum: bit for bit across calls (the
+    flash forward and backward, the forward's GEMM-tile route at D = 512,
+    and the GEMM tile with both B layouts)."""
     gen = torch.Generator().manual_seed(11)
     q, k, v, g = (_f32(gen, 2, 3, 150, 40, device=cuda) for _ in range(4))
     bias = _f32_bias(gen, 2, 150, cuda)
@@ -752,7 +758,112 @@ def test_f32_kernels_are_deterministic(cuda):
     one = flash_attention_bwd_f32(q, k, v, bias, out, lse, g)
     two = flash_attention_bwd_f32(q, k, v, bias, out, lse, g)
     assert all(torch.equal(a, b) for a, b in zip(one, two))
+    q, k, v = (_f32(gen, 2, 1, 200, 512, device=cuda) for _ in range(3))
+    out, lse = flash_attention_f32(q, k, v, bias[:, :1].expand(2, 200).contiguous(),
+                                   return_lse=True)
+    again = flash_attention_f32(q, k, v, bias[:, :1].expand(2, 200).contiguous(),
+                                return_lse=True)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    a, w = _f32(gen, 300, 2600, device=cuda), _f32(gen, 200, 2600, device=cuda)
+    assert torch.equal(gemm_f32(a, w), gemm_f32(a, w))
+    assert torch.equal(gemm_f32(a, w.t().contiguous(), b_kn=True),
+                       gemm_f32(a, w.t().contiguous(), b_kn=True))
     torch.cuda.synchronize()
+
+
+# (label, m, n, k, b_kn, batch, bias, res, a_heads, out_heads): every layout
+# of the GEMM tile at ragged M and N (not multiples of its 128 x 128 tile),
+# and K across the sum's flush every 256 (2560, 4096), at the fused
+# blocks' widths (K up to 2560 at C = 640) and past them.
+F32_GEMM_CASES = [
+    ("(N, K) B", 257, 300, 332, False, 0, None, False, 0, 0),
+    ("(K, N) B", 257, 300, 332, True, 0, None, False, 0, 0),
+    ("(N, K) B + bias + residual", 130, 36, 64, False, 0, "shared", True, 0, 0),
+    ("(N, K) B, K = 2560", 200, 136, 2560, False, 0, "shared", True, 0, 0),
+    ("(K, N) B, K = 4096", 300, 264, 4096, True, 0, None, False, 0, 0),
+    ("batch, a bias row each", 70, 52, 48, False, 3, "per entry", False, 0, 0),
+    ("batch, (K, N) B", 33, 16, 132, True, 2, "shared", False, 0, 0),
+    ("head-merged A + bias + residual", 2 * 150, 320, 5 * 64, False, 0, "shared", True, 5, 0),
+    ("head-split output", 3 * 100, 8 * 40, 320, False, 0, None, False, 0, 8),
+]
+
+
+@pytest.mark.parametrize("label,m,n,k,b_kn,batch,bias,res,a_heads,out_heads", F32_GEMM_CASES,
+                         ids=[c[0] for c in F32_GEMM_CASES])
+def test_f32_gemm_layouts(cuda, label, m, n, k, b_kn, batch, bias, res, a_heads, out_heads):
+    """The GEMM tile against its plain version in f32 (relative L2 1e-5)."""
+    gen = torch.Generator().manual_seed(m + n + k)
+    lead = (batch,) if batch else ()
+    a = _f32(gen, *lead, m, k, device=cuda)
+    if a_heads:
+        l, d = m // 2, k // a_heads
+        a = a.reshape(2, l, a_heads, d).transpose(1, 2).contiguous()
+    b = _f32(gen, *lead, *((k, n) if b_kn else (n, k)), device=cuda, scale=k ** -0.5)
+    bv = {None: None, "shared": _f32(gen, n, device=cuda),
+          "per entry": _f32(gen, batch, n, device=cuda)}[bias]
+    rv = _f32(gen, m, n, device=cuda) if res else None
+    l_out = m // 3 if out_heads else 0
+    before = gemm_f32.launches
+    got = gemm_f32(a, b, bv, rv, b_kn=b_kn, out_heads=out_heads, l=l_out)
+    torch.cuda.synchronize()
+    assert gemm_f32.launches == before + 1
+    _assert_f32_close(got, gemm_f32_reference(a, b, bv, rv, b_kn, 1.0, out_heads, l_out))
+
+
+@pytest.mark.parametrize("cap", [1 << 30, 2 * 100 * 300 * 4, 64 * 300 * 4])
+def test_f32_flash_forward_route_across_chunks(cuda, cap):
+    """The D = 512 forward's three launches a chunk, with one chunk, several
+    chunks of heads, and each head split by query rows, against the plain
+    version; each chunk launches the GEMM tile twice and the row pass once."""
+    gen = torch.Generator().manual_seed(cap % 1000)
+    b, h, lq, lk, d = 2, 3, 100, 299, 512
+    q, k, v = (_f32(gen, b, h, n, d, device=cuda) for n in (lq, lk, lk))
+    bias = _f32_bias(gen, b, lk, cuda)
+    out, lse = torch.empty_like(q), torch.empty((b, h, lq), device=cuda)
+    chunks = f32_route.attention_chunks(b * h, lq, lk, cap)
+    before = gemm_f32.launches, attention_rows_f32.launches
+    f32_route.attention_route_f32(q, k, v, bias, d ** -0.5, out, lse,
+                                  f32_route.RouteLaunches(f32_route._lib()), cap)
+    torch.cuda.synchronize()
+    assert (gemm_f32.launches, attention_rows_f32.launches) == (
+        before[0] + 2 * len(chunks), before[1] + len(chunks))
+    ref, ref_lse = attention_reference_lse(q, k, v, bias)
+    _assert_f32_close(out, ref)
+    _assert_f32_close(lse, ref_lse)
+
+
+def test_f32_paths_take_the_hand_kernels_only(cuda, monkeypatch):
+    """CUDA f32 attention past head dim 160, the f32 fused blocks' GEMMs and
+    the probe's f32 matmul launch the hand kernels (their counters rise) and
+    reach no plain version, SDPA or cuBLAS product (each raises here)."""
+    import torch.nn.functional as F
+
+    from mvldm_tpu_torch.ops import attention as attn_mod
+
+    def refuse(*_, **__):
+        raise AssertionError("a library or plain call on the f32 card path")
+
+    for mod, name in ((F, "scaled_dot_product_attention"), (F, "linear"), (torch, "matmul"),
+                      (torch, "bmm"), (torch, "einsum"), (attn_mod, "attention_reference"),
+                      (attn_mod, "attention_reference_lse"), (f32_route, "gemm_f32_reference"),
+                      (f32_route, "attention_rows_reference")):
+        monkeypatch.setattr(mod, name, refuse)
+    gen = torch.Generator().manual_seed(3)
+    counts = lambda: (gemm_f32.launches, attention_rows_f32.launches,  # noqa: E731
+                      micro.matmul.f32_launches)
+    before = counts()
+    q, k, v = (_f32(gen, 2, 1, 130, 512, device=cuda) for _ in range(3))
+    flash_attention_f32(q, k, v, return_lse=True)
+    x = _f32(gen, 2, 64, 64, device=cuda)
+    ws = [_f32_linear_t(gen, 64, 64, cuda) for _ in range(4)]
+    vec = _f32(gen, 64, device=cuda)
+    fused_ln_self_attention_f32(x, vec + 1.0, vec, *ws, vec, 2, 32)
+    w1, w2 = _f32_linear_t(gen, 64, 512, cuda), _f32_linear_t(gen, 256, 64, cuda)
+    fused_ln_geglu_ff_f32(x, vec + 1.0, vec, w1, _f32(gen, 512, device=cuda), w2, vec)
+    micro.matmul(_f32(gen, 256, 128, device=cuda), _f32(gen, 128, 128, device=cuda))
+    torch.cuda.synchronize()
+    # the route: S and P V (2), the row pass (1); the blocks: 4 + 2 GEMMs
+    assert tuple(a - b for a, b in zip(counts(), before)) == (2 + 4 + 2, 1, 1)
 
 
 # ------------------------------------------- an f32 model through the route

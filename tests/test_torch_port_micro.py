@@ -223,13 +223,14 @@ def test_probes_refuse_a_cpu_device(probe, kwargs):
 
 # (case, kwargs, bound ms, bound_by): the bounds at the tool's shapes, from
 # 989 TFLOP/s bf16 (three products for the f32-dot flash, P V on both
-# halves of p; the function's two otherwise, fullk with the max too), 67
-# FP32 and 3.35 TB/s.
+# halves of p; the function's two otherwise, fullk with the max too), the
+# f32 matmul's three TF32 products at 494.7 TFLOP/s (its split-TF32 route),
+# and 3.35 TB/s.
 BOUNDS = [
     ("matmul", dict(m=4096, k=1024, dtype=torch.bfloat16), 8.684e-3, "operations"),
     ("matmul", dict(m=8192, k=512, dtype=torch.bfloat16), 5.164e-3, "bytes"),
-    ("matmul", dict(m=4096, k=1024, dtype=torch.float32), 0.1282, "operations"),
-    ("matmul", dict(m=8192, k=512, dtype=torch.float32), 0.06411, "operations"),
+    ("matmul", dict(m=4096, k=1024, dtype=torch.float32), 0.05209, "operations"),
+    ("matmul", dict(m=8192, k=512, dtype=torch.float32), 0.02605, "operations"),
     ("flash", dict(b=16, h=8, l=5120, d=40, dot_dtype=torch.bfloat16), 0.5428, "operations"),
     ("flash", dict(b=16, h=8, l=5120, d=40, dot_dtype=torch.float32), 0.8142, "operations"),
     ("flash", dict(b=16, h=8, l=5120, d=40, dot_dtype=torch.bfloat16, pad_to=128), 1.7371,

@@ -101,6 +101,9 @@ def test_cpu_f32_calls_launch_no_f32_kernel(grad):
                                                t(16, 16), t(16, 16), t(16), 2, 8)),
     ("fused_ln_geglu_ff_f32", lambda t: (t(1, 8, 16), t(16), t(16), t(16, 128), t(128),
                                          t(64, 16), t(16))),
+    ("gemm_f32", lambda t: (t(8, 16), t(12, 16))),
+    ("gemm_f32", lambda t: (t(2, 8, 16), t(2, 16, 12), t(12))),
+    ("attention_rows_f32", lambda t: (t(2, 8, 16), t(2, 8), 13)),
 ])
 @pytest.mark.parametrize("device", ["cpu", "meta"])
 def test_f32_wrappers_launch_on_the_card_only(wrapper, args, device):
