@@ -82,6 +82,22 @@ Phases, each fatal on failure (non-zero exit, no final result line):
    f32-route kernel), and one step with block remat for its peak memory.
 10. a profile of one training step: device time by kernel group, the flash
    backward on its own, and the idle share.
+11. cli: the sampling CLI (``python -m mvldm_tpu_torch.scripts.generate_mvldm``,
+   through ``generate_mvldm.main`` on the card) at ``+experiment=baseline``
+   (bf16, seeded weights, 25 steps) on a synthetic RE10K test stage the
+   phase writes (2 scenes of 24 JPEG frames at 360x640): (a) anchored, both
+   scenes in one dispatch, 8 frames each; (b) autoregressive, 7 frames of
+   one scene chosen by hash; (c) (b) with the latent feedthrough; (d) DDPM
+   with 10 steps, anchored, 4 frames; (e) the standard cross-view block,
+   anchored, 4 frames. Each run: its wall time and frames, the JAX CLI's
+   output tree (uint8 PNGs that are not constant, GIF, MP4s that parse),
+   the forward kernels' launches equal to its plan's (CLI_LAUNCHES) and no
+   f32-route launch. Beside it, each fatal: the scene-batched dispatches at
+   S = 1 equal to the single-scene ones bit for bit and S = 2 against two
+   S = 1 loops (SCENE_BATCH_REL_L2_BOUND), right after phase 6; one DDPM
+   step in f32 on the card against float64 on the host
+   (DDPM_STEP_REL_BOUND); (e)'s UNet in bf16 on the card against the host
+   in f32 (UNET_REL_L2_BOUND). It runs after phase 6, before phase 7.
 
 Every result is one JSON line. The last two lines are the card as
 ``nvidia-smi`` names it and ``{"ok": true, "device": {...}}``.
@@ -124,6 +140,26 @@ F32_REL_L2_BOUND = 1e-3
 # and the forward were ported.
 SCENE_LAUNCHES = {"flash_attention": 1706, "fused_ln_self_attention": 800,
                   "fused_ln_geglu_ff": 800}
+# Forward-kernel launches of each run of the cli phase, as the sampling CLI's
+# launch plan takes them (tests/test_torch_port_launch_plan.py counts them
+# again on the meta device): (a) anchored, 2 scenes x 8 frames in one
+# dispatch, as one 16-frame scene; (b) autoregressive, windows of 4 and 3;
+# (c) (b) with the context encoded once; (d) DDPM, 10 steps, 4 frames; (e)
+# the standard cross-view block, 4 frames.
+CLI_LAUNCHES = {
+    "anchored": {"flash_attention": 1706, "fused_ln_self_attention": 800,
+                 "fused_ln_geglu_ff": 800},
+    "autoregressive": {"flash_attention": 854, "fused_ln_self_attention": 400,
+                       "fused_ln_geglu_ff": 400},
+    "autoregressive_feedthrough": {"flash_attention": 853, "fused_ln_self_attention": 400,
+                                   "fused_ln_geglu_ff": 400},
+    "ddpm": {"flash_attention": 344, "fused_ln_self_attention": 160, "fused_ln_geglu_ff": 160},
+    "standard": {"flash_attention": 604, "fused_ln_self_attention": 200,
+                 "fused_ln_geglu_ff": 200},
+}
+CLI_FRAMES = 24  # frames a synthetic scene of the cli phase holds
+# One DDPM ancestral step in f32 on the card against float64 on the host.
+DDPM_STEP_REL_BOUND = 1e-6
 TRAIN_LOSS_REL_BOUND = 3e-2
 TRAIN_GRAD_REL_L2_BOUND = 1e-1
 N_TARGET = 16
@@ -916,6 +952,265 @@ def f32_phase(card: str, inputs, cpu_out, kernels, f32_kernels):
     return engine, f32_launches
 
 
+# ------------------------------------------------------------------- cli
+
+def make_frame(i: int, h: int = 360, w: int = 640) -> bytes:
+    """A deterministic colorful frame, JPEG-encoded (the generator of
+    tests/synthetic_data.py)."""
+    import io
+
+    from PIL import Image
+
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    img = np.stack([((xx + 5 * i) % 256), ((yy + 3 * i) % 256),
+                    ((xx // 2 + yy // 2 + 7 * i) % 256)], axis=-1).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="JPEG", quality=90)
+    return buf.getvalue()
+
+
+def make_cameras(n: int) -> np.ndarray:
+    """(n, 18) rows fx fy cx cy 0 0 + w2c(3x4): a camera sliding along +x
+    and turning slowly (the generator of tests/synthetic_data.py)."""
+    rows = np.zeros((n, 18), dtype=np.float32)
+    for i in range(n):
+        theta = 0.02 * i
+        c, s = np.cos(theta), np.sin(theta)
+        rot = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], dtype=np.float32)
+        t_c2w = np.array([0.08 * i, 0.01 * i, 0.02 * i], dtype=np.float32)
+        rows[i, :4] = [0.9, 1.6, 0.5, 0.5]
+        rows[i, 6:] = np.concatenate([rot.T, (-rot.T @ t_c2w)[:, None]], axis=1).reshape(-1)
+    return rows
+
+
+def write_cli_dataset(root) -> list:
+    """A synthetic RE10K test stage: 2 scenes of CLI_FRAMES JPEG frames at
+    360x640 in one chunk, written by the port's ``save_chunk``."""
+    from mvldm_tpu_torch.data.chunk_reader import save_chunk
+
+    stage = root / "test"
+    stage.mkdir(parents=True)
+    keys = [f"scenetest{s:04d}" for s in range(2)]
+    save_chunk([{"key": key, "cameras": make_cameras(CLI_FRAMES),
+                 "images": [make_frame(i + 100 * s) for i in range(CLI_FRAMES)]}
+                for s, key in enumerate(keys)], stage / "000000.torch")
+    (stage / "index.json").write_text(json.dumps({k: "000000.torch" for k in keys}))
+    return keys
+
+
+def check_cli_tree(scene_dir, n_frames: int, what: str) -> dict:
+    """The JAX CLI's output tree for one scene: ``color/`` with a uint8
+    256 px PNG for each sampled frame (targets 0..n-1), ``context/`` with
+    the context pair (frames 0 and 23), ``sampled.gif`` and the 25 / 10 fps
+    MP4s, which must parse."""
+    from PIL import Image
+
+    from mvldm_tpu_torch.utils.mp4 import parse_boxes
+
+    colors = sorted(p.name for p in (scene_dir / "color").glob("*.png"))
+    if colors != [f"{i:06d}.png" for i in range(n_frames)]:
+        fail(f"{what}: color/ holds {colors}")
+    context = sorted(p.name for p in (scene_dir / "context").glob("*.png"))
+    if context != [f"{0:06d}.png", f"{CLI_FRAMES - 1:06d}.png"]:
+        fail(f"{what}: context/ holds {context}")
+    means = []
+    for name in colors:
+        img = np.asarray(Image.open(scene_dir / "color" / name))
+        if img.dtype != np.uint8 or img.shape != (256, 256, 3) or img.min() == img.max():
+            fail(f"{what}: frame {name} is {img.dtype} {img.shape}, range "
+                 f"{img.min()}..{img.max()}")
+        means.append(float(img.mean()))
+    if not (scene_dir / "sampled.gif").is_file():
+        fail(f"{what}: no sampled.gif")
+    for name in ("sampled_fps_25.mp4", "sampled_fps_10.mp4"):
+        boxes = [k.decode() for k, _ in parse_boxes((scene_dir / name).read_bytes())]
+        if boxes != ["ftyp", "mdat", "moov"]:
+            fail(f"{what}: {name} boxes {boxes}")
+    return {"frames": len(colors), "frame_mean": float(np.mean(means))}
+
+
+def cli_phase(card: str, kernels, f32_kernels) -> dict:
+    """The sampling CLI, ``python -m mvldm_tpu_torch.scripts.generate_mvldm``
+    as a user runs it (``generate_mvldm.main``, on the card), at
+    ``+experiment=baseline`` (the 0.93B UNet, the SD2.1 VAE, 256 px, bf16,
+    seeded weights) with 25 steps, on a synthetic RE10K test stage written
+    here: (a) anchored, both scenes in one dispatch, 8 frames each; (b)
+    autoregressive, 7 frames (windows of 4 and 3) of one scene chosen by
+    hash; (c) (b) with the latent feedthrough; (d) DDPM with 10 steps,
+    anchored, 4 frames; (e) the standard cross-view block, anchored, 4
+    frames. Each run's forward-kernel launches must be CLI_LAUNCHES's, with
+    no f32-route launch, and its output tree the JAX CLI's. Returns each
+    run's launch counts."""
+    import shutil
+    from pathlib import Path
+
+    from mvldm_tpu_torch.scripts import generate_mvldm
+
+    root = Path(__file__).resolve().parent / "build" / "cli_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    keys = write_cli_dataset(root / "data")
+    data_s = time.perf_counter() - t0
+    common = ["+experiment=baseline", f"dataset.root={root / 'data'}",
+              "model.scheduler.num_inference_steps=25", "trainer.limit_test_batches=2",
+              "dataset.view_sampler.max_distance_between_context_views=23"]
+    anchored4 = ["test.sampling_mode=anchored", "test.limit_frames=4", f"scene_id={keys[0]}"]
+    autoregressive = ["test.sampling_mode=autoregressive", "test.limit_frames=7",
+                      f"scene_id={keys[1]}"]
+    runs = {
+        "anchored": (["test.sampling_mode=anchored", "test.limit_frames=8",
+                      "test.scene_batch=2"], keys, 8),
+        "autoregressive": (autoregressive, keys[1:], 7),
+        "autoregressive_feedthrough": (autoregressive + ["test.ar_latent_feedthrough=true"],
+                                       keys[1:], 7),
+        "ddpm": (["model/scheduler=ddpm", "model.scheduler.num_inference_steps=10"]
+                 + anchored4, keys[:1], 4),
+        "standard": (["model/denoiser/multi_view_attention=standard"] + anchored4,
+                     keys[:1], 4),
+    }
+    from mvldm_tpu_torch.builder import build_engine
+    from mvldm_tpu_torch.config import compose, load_typed_root_config
+
+    t0 = time.perf_counter()
+    build_engine(load_typed_root_config(compose(common)), "cuda")
+    torch.cuda.synchronize()
+    emit(phase="cli_engine_build", what="build_engine at +experiment=baseline on the card "
+         "(seeded weights drawn on the host), the part of each cli run's wall time before "
+         "its data and sampling", seconds=time.perf_counter() - t0, data_s=data_s, card=card)
+    by_run = {}
+    for name, (extra, scenes, n_frames) in runs.items():
+        out = root / "runs" / name
+        argv = common + extra + [f"output_dir={out}"]
+        for fn in kernels + f32_kernels:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        generate_mvldm.main(argv)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches, f32_launches = _counts(kernels), _counts(f32_kernels)
+        written = sorted(p.name for p in (out / "video").iterdir())
+        if written != sorted(scenes):
+            fail(f"cli {name}: scenes written {written}, not {sorted(scenes)}")
+        trees = {key: check_cli_tree(out / "video" / key, n_frames, f"cli {name} {key}")
+                 for key in scenes}
+        frames = sum(t["frames"] for t in trees.values())
+        emit(phase="cli", run=name, argv=" ".join(argv),
+             what="generate_mvldm.main on the card, wall time of the call (engine build "
+             "with seeded weights on the host, data, sampling, PNG / GIF / MP4 export)",
+             wall_s=wall_s, frames=frames, frames_per_s=frames / wall_s, scenes=trees,
+             launches=launches, expected_launches=CLI_LAUNCHES[name],
+             f32_launches=f32_launches, card=card)
+        if launches != CLI_LAUNCHES[name]:
+            fail(f"cli {name}: launched {launches}, not {CLI_LAUNCHES[name]}")
+        if any(f32_launches.values()):
+            fail(f"cli {name}: the bf16 CLI launched f32 kernels: {f32_launches}")
+        by_run[name] = launches
+    return by_run
+
+
+def ddpm_step_check(card: str) -> None:
+    """One DDPM ancestral step (the config's scheduler at 10 steps) in f32
+    on the card against the same step in float64 on the host, on the same
+    prediction, sample and noise, at the first, a middle and the last
+    timestep."""
+    from mvldm_tpu_torch.config import compose, load_typed_root_config
+    from mvldm_tpu_torch.diffusion.schedulers import get_scheduler
+
+    cfg = load_typed_root_config(compose(["+experiment=baseline", "model/scheduler=ddpm",
+                                          "model.scheduler.num_inference_steps=10"]))
+    sched = get_scheduler(cfg.model.scheduler)
+    gen = torch.Generator("cuda").manual_seed(8)
+    shape = (2, 4, 32, 32, 4)
+    pred, x, noise = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
+    rels = {}
+    for t in (int(sched.timesteps()[0]), 500, 0):
+        card_out = sched.step(pred, t, x, noise).double().cpu()
+        host = sched.step(pred.double().cpu(), t, x.double().cpu(), noise.double().cpu())
+        rels[t] = (torch.linalg.norm(card_out - host) / torch.linalg.norm(host)).item()
+    emit(phase="cli_ddpm_step", what="DDPM ancestral step, f32 on the card vs float64 on "
+         "the host, same prediction, sample and noise (2 x 4 x 32 x 32 x 4)",
+         rel_l2_by_t=rels, bound=DDPM_STEP_REL_BOUND, card=card)
+    if not all(r <= DDPM_STEP_REL_BOUND for r in rels.values()):
+        fail(f"DDPM step on the card: rel L2 {rels} > {DDPM_STEP_REL_BOUND}")
+
+
+def standard_unet_parity(card: str, inputs) -> None:
+    """The UNet of run (e), ``multi_view_attention: standard``, at the UNet
+    parity phase's inputs: the card in bf16 (kernels) against the host in
+    f32 (plain versions), the same seeded weights."""
+    from mvldm_tpu_torch.builder import build_engine
+    from mvldm_tpu_torch.config import compose, load_typed_root_config
+
+    cfg = load_typed_root_config(compose(["+experiment=baseline",
+                                          "model/denoiser/multi_view_attention=standard"]))
+    t0 = time.perf_counter()
+    x, t, mask = inputs
+    with torch.inference_mode():
+        gpu = build_engine(cfg, "cuda").unet(x.cuda(), t.cuda(), view_mask=mask.cuda())
+        gpu = gpu.float().cpu()
+        cpu = build_engine(cfg, "cpu", torch.float32).unet(x, t, view_mask=mask)
+    rel = (torch.linalg.norm(gpu - cpu) / torch.linalg.norm(cpu)).item()
+    finite = bool(torch.isfinite(gpu).all())
+    emit(phase="cli_standard_parity", what="UNet with the standard cross-view block, 2 rows x "
+         "5 views, 32x32 latents, view mask: card bf16 kernels vs host f32 plain",
+         rel_l2=rel, bound=UNET_REL_L2_BOUND, finite=finite, rms_host=cpu.square().mean().sqrt()
+         .item(), seconds=time.perf_counter() - t0, card=card)
+    if not finite or not rel <= UNET_REL_L2_BOUND:
+        fail(f"standard-block UNet parity rel L2 {rel:.4g} > {UNET_REL_L2_BOUND}")
+
+
+# Two scenes in one dispatch against each alone (trouble of batch-dependent
+# convolution algorithms): relative L2 of the sampled latents after the
+# 25-step loop, bf16.
+SCENE_BATCH_REL_L2_BOUND = 3e-2
+
+
+def scene_batch_checks(card: str, engine) -> None:
+    """``dispatch_anchored_many`` / ``dispatch_autoregressive_many`` at S = 1
+    against the single-scene dispatch with the same seed: equal bit for bit.
+    Then the sampling loop at S = 2 against each scene alone with the same
+    context latents and noise, within SCENE_BATCH_REL_L2_BOUND."""
+    from mvldm_tpu_torch.builder import IMAGE_HW
+    from mvldm_tpu_torch.diffusion.video_sampling import VideoSampler
+
+    sampler = VideoSampler(engine)
+    ctx, tgt = make_scene(8, IMAGE_HW)
+    record = {}
+    for mode, limit in (("anchored", 8), ("autoregressive", 7)):
+        single = getattr(sampler, f"sample_{mode}")(
+            ctx, tgt, torch.Generator("cuda").manual_seed(6), limit_frames=limit)
+        [many] = getattr(sampler, f"sample_{mode}_many")(
+            [(ctx, tgt)], torch.Generator("cuda").manual_seed(6), limit_frames=limit)
+        equal = sorted(single) == sorted(many) and all(
+            np.array_equal(single[f], many[f]) for f in single)
+        record[mode] = {"frames": len(single), "bitwise_equal": bool(equal)}
+        if not equal:
+            fail(f"{mode}: dispatch_{mode}_many at S = 1 differs from the single-scene dispatch")
+
+    gen = torch.Generator("cuda").manual_seed(9)
+    ctx_lat = torch.randn((2, 1, 32, 32, 4), generator=gen, device="cuda")
+    noise = torch.randn((2, 4, 32, 32, 4), generator=gen, device="cuda")
+    extr = torch.eye(4, device="cuda").repeat(2, 5, 1, 1)
+    extr[:, :, 0, 3] = torch.linspace(0, 1, 5, device="cuda")
+    extr[1, :, 2, 3] = 0.3
+    intr = torch.eye(3, device="cuda").repeat(2, 5, 1, 1)
+    intr[:, :, :2, 2] = 0.5
+    both = engine.sample_latents(ctx_lat, extr, intr, 4, initial_noise=noise)
+    rels = []
+    for i in range(2):
+        alone = engine.sample_latents(ctx_lat[i:i + 1], extr[i:i + 1], intr[i:i + 1], 4,
+                                      initial_noise=noise[i:i + 1])
+        rels.append((torch.linalg.norm(both[i:i + 1] - alone)
+                     / torch.linalg.norm(alone)).item())
+    record["s2_vs_s1_rel_l2"] = rels
+    record["s2_vs_s1_bitwise_equal"] = [r == 0.0 for r in rels]
+    emit(phase="cli_scene_batch", what="S = 1 scene-batched dispatch vs single-scene dispatch "
+         "(same seed, bitwise), and the 25-step loop at S = 2 vs each scene alone (same "
+         "latents and noise, relative L2)", **record, bound=SCENE_BATCH_REL_L2_BOUND, card=card)
+    if not all(r <= SCENE_BATCH_REL_L2_BOUND for r in rels):
+        fail(f"S = 2 against S = 1: rel L2 {rels} > {SCENE_BATCH_REL_L2_BOUND}")
+
+
 # -------------------------------------------------------------- training
 
 def train_parity_phase(card: str, engine, cpu_engine, f32_engine, kernels, f32_kernels):
@@ -1163,7 +1458,12 @@ def main() -> int:
     engine, sampling_launches = main_path_phase(card, forward, F32_KERNELS)
     profile_phase(card, engine)
     cpu_engine, unet_inputs, cpu_out = unet_parity_phase(card, engine)
+    scene_batch_checks(card, engine)
     del engine
+    torch.cuda.empty_cache()
+    cli_launches = cli_phase(card, forward, F32_KERNELS)
+    ddpm_step_check(card)
+    standard_unet_parity(card, unet_inputs)
     torch.cuda.empty_cache()
     f32_results = f32_kernels_phase(card, gen)
     f32_engine, f32_forward_launches = f32_phase(card, unet_inputs, cpu_out,
@@ -1200,11 +1500,13 @@ def main() -> int:
         "fused_ln_geglu_ff": ("mvldm_tpu_torch/csrc/fused_ln_geglu_ff.cu",
                               "mvldm_tpu/ops/fused_ff.py:75"),
     }
+    def bf16_paths(name: str) -> dict:
+        return {"sampling": sampling_launches.get(name, 0), "training": train_launches[name],
+                **{f"cli_{run}": counts.get(name, 0) for run, counts in cli_launches.items()}}
+
     emit(kernels=[
         dict(name=name, route="cuda", source=meta[name][0], replaces=meta[name][1],
-             launches=sampling_launches.get(name, 0) + train_launches[name],
-             launches_by_path={"sampling": sampling_launches.get(name, 0),
-                               "training": train_launches[name]},
+             launches=sum(bf16_paths(name).values()), launches_by_path=bf16_paths(name),
              max_abs_err=r["max_abs_err"], ms=r["ms"],
              plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
              library_ms=r["library_ms"], timed_shape=r["shape"])

@@ -1,7 +1,15 @@
-"""The flagship configuration with seeded random weights (counterpart of
-``build_flagship`` in the repository's ``bench.py``): the SD2.1 multi-view
-UNet (0.93B parameters) with 8-head cross-view blocks, the SD2.1 VAE, raw
-3+3 ray channels (11 UNet input channels), CFG 3.0 and 25 DDIM steps;
+"""Model and engine construction (counterpart of ``mvldm_tpu/builder.py``
+and of ``build_flagship`` in the repository's ``bench.py``).
+
+:func:`build_engine` builds the engine a typed ``RootCfg`` describes, on a
+device, with the seeded weights of :func:`init_params`;
+:func:`load_pretrained` then loads a reference Lightning ``.ckpt`` by
+``load_state_dict`` (the port's modules carry its key names).
+
+:func:`build_flagship` is the flagship written in code: the SD2.1
+multi-view UNet (0.93B parameters) with 8-head cross-view blocks, the SD2.1
+VAE, raw 3+3 ray channels (11 UNet input channels), CFG 3.0 and 25 DDIM
+steps, the model ``+experiment=baseline`` builds;
 :func:`build_flagship_train` is the same model for training and
 :func:`make_train_batch` the repository's synthetic training batch.
 
@@ -15,12 +23,15 @@ the joint-attention kernel without effect on the output.
 
 from __future__ import annotations
 
+import re
+from typing import Optional
+
 import numpy as np
 import torch
 import torch.nn as nn
 
 from .diffusion.engine import Batch, DiffusionEngine, ModelCfg, unet_in_channels
-from .diffusion.schedulers import DDIMScheduler, DDIMSchedulerKwargs
+from .diffusion.schedulers import DDIMScheduler, DDIMSchedulerKwargs, get_scheduler
 from .models.mv_attention import SpatialTransformer3DCfg
 from .models.unet import MultiViewUNet, MultiViewUNetCfg
 from .models.vae import AutoencoderCfg, AutoencoderKL, AutoencoderKLCfg
@@ -53,8 +64,9 @@ def flagship_model_cfg() -> ModelCfg:
 
 
 @torch.no_grad()
-def init_weights(model: nn.Module, seed: int) -> None:
-    """Seeded random weights, drawn on the host in a fixed parameter order."""
+def init_params(model: nn.Module, seed: int) -> None:
+    """The port's seeded initialisation, in place: random weights drawn on
+    the host in a fixed parameter order, whatever the model's device."""
     gen = torch.Generator().manual_seed(seed)
     for name, p in sorted(model.named_parameters()):
         if name.endswith("bias"):
@@ -66,12 +78,70 @@ def init_weights(model: nn.Module, seed: int) -> None:
             p.copy_(torch.randn(p.shape, generator=gen) / fan_in ** 0.5)
 
 
+def resolve_dtype(precision) -> torch.dtype:
+    """The reference's Lightning precision tokens as torch dtypes; the
+    16-bit ones map to bf16, as in the JAX package."""
+    if precision in (None, "32", "32-true", 32):
+        return torch.float32
+    if precision in ("bf16", "bf16-mixed", "bf16-true", "16-mixed", "16", "16-true", 16):
+        return torch.bfloat16
+    if precision in ("64", "64-true", 64):
+        return torch.float64
+    raise ValueError(f"Unknown precision: {precision}")
+
+
+def build_engine(cfg, device="cuda", dtype: Optional[torch.dtype] = None
+                 ) -> DiffusionEngine:
+    """The engine of ``cfg`` (a typed ``RootCfg``) on ``device`` in ``dtype``
+    (``trainer.precision``'s when None). The modules are made on the meta
+    device and materialised on ``device`` with :func:`init_params`' seeded
+    weights (seed ``cfg.seed``, 0 when null); on the meta device they stay
+    shapes only."""
+    dtype = dtype or resolve_dtype(cfg.trainer.precision)
+    with torch.device("meta"):
+        model = MVLDM(cfg.model)
+    if torch.device(device).type != "meta":
+        model = model.to_empty(device=device)
+        init_params(model, cfg.seed or 0)
+    model = model.to(dtype).eval()
+    engine = DiffusionEngine(cfg.model, model.denoiser, model.autoencoder,
+                             get_scheduler(cfg.model.scheduler))
+    engine.unet.remat = cfg.trainer.remat
+    return engine
+
+
+# Up-block SD attentions of the reference checkpoint: the live model skips
+# them (``MultiViewUNetCfg.up_block_attention``), so the port has none.
+UNUSED_KEYS = re.compile(r"^denoiser\.unet\.up_blocks\.\d+\.attentions\.")
+
+
+def load_pretrained(cfg, engine: DiffusionEngine) -> None:
+    """Overlay a reference Lightning ``.ckpt`` named by
+    ``checkpointing.load`` on the engine's weights (the JAX package's
+    warm start): the keys it holds replace the seeded weights, keys it
+    lacks keep them. The file is unpickled in full, as the JAX package
+    does: load only checkpoints you trust."""
+    load = cfg.checkpointing.load
+    if not (load and str(load).endswith(".ckpt")):
+        return
+    ckpt = torch.load(load, map_location="cpu", weights_only=False)
+    state_dict = {k: v for k, v in ckpt.get("state_dict", ckpt).items()
+                  if k.startswith(("denoiser.", "autoencoder.")) and not UNUSED_KEYS.match(k)}
+    holder = nn.Module()
+    holder.denoiser, holder.autoencoder = engine.unet, engine.vae
+    missing, unexpected = holder.load_state_dict(state_dict, strict=False)
+    if unexpected:
+        raise ValueError(f"{load}: keys the model does not have: {unexpected[:8]}")
+    print(f"Loaded {len(state_dict)} tensors from {load}"
+          + (f"; {len(missing)} keys kept their seeded init" if missing else ""))
+
+
 def build_flagship(device="cuda", dtype: torch.dtype = torch.bfloat16,
                    seed: int = 0, cfg_mode: str = "auto") -> DiffusionEngine:
     """The flagship engine on ``device`` in ``dtype`` with seeded weights."""
     model_cfg = flagship_model_cfg()
     model = MVLDM(model_cfg)
-    init_weights(model, seed)
+    init_params(model, seed)
     model = model.to(device=device, dtype=dtype).eval()
     scheduler = DDIMScheduler.create(
         DDIMSchedulerKwargs(clip_sample=False, prediction_type="epsilon"),

@@ -1,6 +1,7 @@
 """Diffusion engine (counterpart of ``mvldm_tpu/diffusion/engine.py``): ray
 channels, VAE encode / decode, the training loss, one CFG denoise step, the
-DDIM loop, and the full encode -> sample -> decode pipeline.
+DDIM or ancestral DDPM loop, and the full encode -> sample -> decode
+pipeline.
 
 The modules own their parameters; random draws come from a caller's
 ``torch.Generator`` (or are passed in, as the parity tests do: a training
@@ -27,7 +28,7 @@ from ..geometry.projection import get_world_rays, sample_image_grid
 from ..models.encodings import positional_encoding, srt_ray_encode
 from ..models.unet import MultiViewUNet, MultiViewUNetCfg
 from ..models.vae import AutoencoderCfg, AutoencoderKL, DiagonalGaussian
-from .schedulers import DDIMScheduler
+from .schedulers import DDPMScheduler, Scheduler, SchedulerCfg
 
 VAE_SCALE = 0.18215  # SD VAE latent scaling
 
@@ -40,10 +41,13 @@ class RayEncodingsCfg:
 
 @dataclass
 class ModelCfg:
-    """The sampling and training fields of the JAX package's ``ModelCfg``
-    (same names)."""
+    """The JAX package's ``ModelCfg`` (same fields, same names; the configs
+    set them all). ``ema`` / ``use_ema_sampling`` choose the EMA weights for
+    sampling; ``use_ddim_scheduler`` and the xformers switch are read by
+    nothing, there as here."""
 
     denoiser: MultiViewUNetCfg = field(default_factory=MultiViewUNetCfg)
+    scheduler: Optional[SchedulerCfg] = None
     autoencoder: AutoencoderCfg = field(default_factory=AutoencoderCfg)
     ray_encodings: RayEncodingsCfg = field(default_factory=RayEncodingsCfg)
     use_cfg: bool = False
@@ -51,7 +55,11 @@ class ModelCfg:
     cfg_train: bool = True
     use_ray_encoding: bool = True
     srt_ray_encoding: bool = False
+    use_ddim_scheduler: bool = False
     use_plucker: bool = False
+    ema: bool = False
+    use_ema_sampling: bool = False
+    enable_xformers_memory_efficient_attention: bool = False
 
 
 def ray_channel_count(cfg: ModelCfg) -> int:
@@ -138,7 +146,7 @@ class TrainDraws:
 
 class DiffusionEngine:
     def __init__(self, model_cfg: ModelCfg, unet: MultiViewUNet,
-                 vae: AutoencoderKL, scheduler: DDIMScheduler,
+                 vae: AutoencoderKL, scheduler: Scheduler,
                  cfg_mode: str = "auto"):
         if cfg_mode not in ("sequential", "batched", "auto"):
             raise ValueError(f"cfg_mode {cfg_mode!r}")
@@ -305,9 +313,10 @@ class DiffusionEngine:
 
     @torch.inference_mode()
     def denoise_step(self, x_t: torch.Tensor, ts: int,
-                     context_latents: torch.Tensor,
-                     rays: torch.Tensor) -> torch.Tensor:
-        """One CFG denoise step; returns x_{t-1} in f32."""
+                     context_latents: torch.Tensor, rays: torch.Tensor,
+                     step_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One CFG denoise step; returns x_{t-1} in f32. ``step_noise`` is
+        DDPM's ancestral N(0, 1) draw (DDIM takes none)."""
         cfg = self.cfg
         b, v_c = context_latents.shape[:2]
         v_t = x_t.shape[1]
@@ -333,6 +342,8 @@ class DiffusionEngine:
             pred_out = pred_uncond + cfg.cfg_scale * (pred_cond[:, v_c:] - pred_uncond)
         else:
             pred_out = self.unet(inputs, timesteps)[:, v_c:]
+        if isinstance(self.scheduler, DDPMScheduler):
+            return self.scheduler.step(pred_out.float(), ts, x_t.float(), noise=step_noise)
         return self.scheduler.step(pred_out.float(), ts, x_t.float())
 
     @torch.inference_mode()
@@ -340,19 +351,28 @@ class DiffusionEngine:
                        extrinsics: torch.Tensor, intrinsics: torch.Tensor,
                        num_target_views: int,
                        generator: Optional[torch.Generator] = None,
-                       initial_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """DDIM loop. ``extrinsics`` / ``intrinsics`` cover ctx + tgt views in
-        order; ``initial_noise`` (b, v_t, hl, wl, 4) replaces the N(0, 1)
-        draw. Returns (b, v_t, hl, wl, 4) scaled latents in f32."""
+                       initial_noise: Optional[torch.Tensor] = None,
+                       step_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The sampling loop. ``extrinsics`` / ``intrinsics`` cover ctx + tgt
+        views in order; ``initial_noise`` (b, v_t, hl, wl, 4) replaces the
+        N(0, 1) draw and, for DDPM, ``step_noise`` (steps, b, v_t, hl, wl,
+        4) the per-step draws, which otherwise come from ``generator`` after
+        the initial noise, one a step. Returns (b, v_t, hl, wl, 4) scaled
+        latents in f32."""
         b, v_c, hl, wl, c = context_latents.shape
+        shape = (b, num_target_views, hl, wl, c)
         context_latents = context_latents.to(self.device)
         if initial_noise is None:
-            initial_noise = randn((b, num_target_views, hl, wl, c), generator,
-                                  self.device)
+            initial_noise = randn(shape, generator, self.device)
         x_t = initial_noise.to(self.device, torch.float32) * self.scheduler.init_noise_sigma
         rays = self.ray_encode(extrinsics, intrinsics, (hl, wl))
-        for ts in self.scheduler.timesteps():
-            x_t = self.denoise_step(x_t, int(ts), context_latents, rays)
+        ancestral = isinstance(self.scheduler, DDPMScheduler)
+        for i, ts in enumerate(self.scheduler.timesteps()):
+            noise = None
+            if ancestral:
+                noise = (randn(shape, generator, self.device) if step_noise is None
+                         else step_noise[i].to(self.device))
+            x_t = self.denoise_step(x_t, int(ts), context_latents, rays, noise)
         return x_t
 
     @torch.inference_mode()
@@ -360,7 +380,7 @@ class DiffusionEngine:
                intrinsics: torch.Tensor, num_target_views: int,
                generator: Optional[torch.Generator] = None,
                initial_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Encode the context, run DDIM, decode the targets.
+        """Encode the context, run the sampling loop, decode the targets.
         Returns (b, v_t, H, W, 3) images in [0, 1]."""
         context_latents = self.encode_images(context_images, generator)
         latents = self.sample_latents(context_latents, extrinsics, intrinsics,

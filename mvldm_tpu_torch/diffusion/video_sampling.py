@@ -1,20 +1,29 @@
-"""Anchored long-video sampling (counterpart of the anchored half of
-``mvldm_tpu/diffusion/video_sampling.py``; autoregressive sampling comes
-with a later slice).
+"""Long-video sampling, anchored and autoregressive (counterpart of
+``mvldm_tpu/diffusion/video_sampling.py``).
 
-A scene is one context frame plus n target frames. Up to four strided
-anchor frames are sampled from the context alone; further anchors come in
-chained windows of three, each conditioned on [context0, previous anchor].
-The remaining frames are assigned to their nearest anchor and sampled in
-groups of three conditioned on [context0, anchor]; ragged tail groups are
-padded by repeating the last view and the padding outputs dropped. Fill
-groups batch along the batch axis in power-of-two chunks of at most
-``max_parallel_groups``. The launch plan (positions, relative-pose index,
-view counts, chunking) is the JAX package's, step for step.
+A scene is one context frame plus n target frames.
+
+* Anchored: up to four strided anchor frames are sampled from the context
+  alone; further anchors come in chained windows of three, each
+  conditioned on [context0, previous anchor]. The remaining frames are
+  assigned to their nearest anchor and sampled in groups of three
+  conditioned on [context0, anchor]. Fill groups batch along the batch axis
+  in power-of-two chunks of at most ``max_parallel_groups``.
+* Autoregressive: the first ``num_anchors_views`` targets from the context,
+  then sliding windows of three conditioned on [context0, the last frame
+  generated]. With ``ar_latent_feedthrough`` the context is encoded once
+  and each window conditions on the previous window's latent itself; the
+  decode runs for export only.
+
+Ragged tail groups are padded by repeating the last view and the padding
+outputs dropped. The launch plan (positions, relative-pose index, view
+counts, chunking) is the JAX package's, step for step.
 
 There is no device mesh: scenes of a batch run on the engine's device.
 Random draws come from the caller's ``torch.Generator``, consumed in launch
-order. Launch outputs stay on the device until ``gather``.
+order. Launch outputs stay on the device until ``gather``: each window's
+context is a device slice of the window before, with no host sync inside
+a chain.
 """
 
 from __future__ import annotations
@@ -45,11 +54,13 @@ class VideoSampler:
     Pending = List[Tuple[torch.Tensor, List[Tuple[int, int]]]]
 
     def __init__(self, engine: DiffusionEngine, num_anchors_views: int = 4,
-                 group_size: int = 3, max_parallel_groups: int = 16):
+                 group_size: int = 3, max_parallel_groups: int = 16,
+                 ar_latent_feedthrough: bool = False):
         self.engine = engine
         self.num_anchors = num_anchors_views
         self.group_size = group_size
         self.max_parallel_groups = max_parallel_groups
+        self.ar_latent_feedthrough = ar_latent_feedthrough
 
     @property
     def device(self) -> torch.device:
@@ -99,7 +110,21 @@ class VideoSampler:
             flat, extrinsics.reshape(s * g, *extrinsics.shape[2:]),
             intrinsics.reshape(s * g, *intrinsics.shape[2:]),
             num_target_views, generator)
-        return self._quantize(eng.decode_latents(latents))
+        return self._decode_u8(latents)
+
+    def _encode_ctx(self, ctx_u8: torch.Tensor,
+                    generator: Optional[torch.Generator]) -> torch.Tensor:
+        """(S, v, h, w, 3) uint8 -> (S, v, hl, wl, 4) latents."""
+        return self.engine.encode_images(ctx_u8.float() / 255.0, generator)
+
+    def _sample_latents(self, ctx_latents: torch.Tensor, extrinsics: torch.Tensor,
+                        intrinsics: torch.Tensor, num_target_views: int,
+                        generator: Optional[torch.Generator]) -> torch.Tensor:
+        return self.engine.sample_latents(ctx_latents, extrinsics, intrinsics,
+                                          num_target_views, generator)
+
+    def _decode_u8(self, latents: torch.Tensor) -> torch.Tensor:
+        return self._quantize(self.engine.decode_latents(latents))
 
     def _make_launch(self, tgt_extr: np.ndarray, tgt_intr: np.ndarray):
         """One (S, v_c) ctx -> (S, v_t) launch on the per-scene cameras."""
@@ -171,7 +196,7 @@ class VideoSampler:
         return self.gather_many(
             self.dispatch_anchored_many(scenes, generator, limit_frames), len(scenes))
 
-    def _prep_scene_batch(self, scenes, limit_frames):
+    def _prep_scene_batch(self, scenes, limit_frames, what: str = "dispatch_anchored_many"):
         prep = []
         for ctx, tgt in scenes:
             if limit_frames is not None:
@@ -179,8 +204,8 @@ class VideoSampler:
             prep.append((self._take(ctx, [0]), tgt))
         counts = {len(t.index) for _, t in prep}
         if len(counts) != 1:
-            raise ValueError("dispatch_anchored_many requires equal target counts "
-                             f"across the scene batch; got {sorted(counts)}")
+            raise ValueError(f"{what} requires equal target counts across the "
+                             f"scene batch; got {sorted(counts)}")
         contexts = [c for c, _ in prep]
         targets = [t for _, t in prep]
         ctx_extr = np.stack([c.extrinsics for c in contexts])  # (S, 1, 4, 4)
@@ -317,4 +342,119 @@ class VideoSampler:
                                  int(targets[sc].index[p]))
                                 for i, p in enumerate(group))
             pending.append((out, rows))
+        return pending
+
+    # ------------------------------------------------------- autoregressive
+
+    def sample_autoregressive_many(self, scenes: List[Tuple[SceneViews, SceneViews]],
+                                   generator: Optional[torch.Generator] = None,
+                                   limit_frames: Optional[int] = None
+                                   ) -> List[Dict[int, np.ndarray]]:
+        return self.gather_many(
+            self.dispatch_autoregressive_many(scenes, generator, limit_frames),
+            len(scenes))
+
+    def dispatch_autoregressive_many(self, scenes: List[Tuple[SceneViews, SceneViews]],
+                                     generator: Optional[torch.Generator] = None,
+                                     limit_frames: Optional[int] = None
+                                     ) -> "VideoSampler.ManyPending":
+        """S scenes (equal target counts) advance their windows in lockstep,
+        stacked along the batch axis of every launch."""
+        (targets, n_t, ctx_extr, ctx_intr, tgt_extr, tgt_intr,
+         ctx0_u8) = self._prep_scene_batch(scenes, limit_frames,
+                                           "dispatch_autoregressive_many")
+        s = len(targets)
+        n_initial = min(self.num_anchors, n_t)
+        feed_latents = self.ar_latent_feedthrough
+
+        if feed_latents:
+            ctx0 = self._encode_ctx(ctx0_u8, generator)
+
+            def launch(ctx_lat, c_extr, c_intr, pos_padded, rel_index, v_t, generator):
+                extr = np.concatenate([c_extr, tgt_extr[:, pos_padded]], axis=1)
+                intr = np.concatenate([c_intr, tgt_intr[:, pos_padded]], axis=1)
+                extr = absolute_to_relative_camera(self._tensor(extr), rel_index)
+                return self._sample_latents(ctx_lat, extr, self._tensor(intr), v_t,
+                                            generator)
+        else:
+            ctx0 = ctx0_u8
+            launch = self._make_launch(tgt_extr, tgt_intr)
+
+        def submit(out, width, positions):
+            images = self._decode_u8(out) if feed_latents else out
+            pending.append((images, [
+                (sc * width + i, sc, int(targets[sc].index[p]))
+                for sc in range(s) for i, p in enumerate(positions)]))
+
+        pending: VideoSampler.ManyPending = []
+        out = launch(ctx0, ctx_extr, ctx_intr,
+                     self._pad_cols(np.arange(n_initial), self.num_anchors),
+                     rel_index=0, v_t=self.num_anchors, generator=generator)
+        submit(out, self.num_anchors, range(n_initial))
+        last_pos, last = n_initial - 1, out[:, n_initial - 1]
+        start = n_initial
+        while start < n_t:
+            end = min(start + self.group_size, n_t)
+            ctx2 = torch.cat([ctx0, last[:, None]], dim=1)
+            c2_extr = np.concatenate([ctx_extr, tgt_extr[:, [last_pos]]], axis=1)
+            c2_intr = np.concatenate([ctx_intr, tgt_intr[:, [last_pos]]], axis=1)
+            out = launch(ctx2, c2_extr, c2_intr,
+                         self._pad_cols(np.arange(start, end), self.group_size),
+                         rel_index=1, v_t=self.group_size, generator=generator)
+            submit(out, self.group_size, range(start, end))
+            last_pos, last = end - 1, out[:, end - 1 - start]
+            start = end
+        return pending
+
+    def sample_autoregressive(self, context: SceneViews, target: SceneViews,
+                              generator: Optional[torch.Generator] = None,
+                              limit_frames: Optional[int] = None) -> Dict[int, np.ndarray]:
+        return self.gather(self.dispatch_autoregressive(context, target, generator,
+                                                        limit_frames))
+
+    def _run(self, ctx_u8: torch.Tensor, c_extr: np.ndarray, c_intr: np.ndarray,
+             t_extr: np.ndarray, t_intr: np.ndarray, rel_index: int,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+        """One single-scene launch: (v_c, h, w, 3) uint8 context on the
+        device -> (v_t, h, w, 3) uint8 targets on the device."""
+        extr = np.concatenate([c_extr, t_extr], axis=0)[None]
+        intr = np.concatenate([c_intr, t_intr], axis=0)[None]
+        extr = absolute_to_relative_camera(self._tensor(extr), rel_index)
+        return self._sample(ctx_u8[None], extr, self._tensor(intr), len(t_extr),
+                            generator)[0]
+
+    def dispatch_autoregressive(self, context: SceneViews, target: SceneViews,
+                                generator: Optional[torch.Generator] = None,
+                                limit_frames: Optional[int] = None
+                                ) -> "VideoSampler.Pending":
+        """The single-scene chain, the JAX package's own path beside the
+        scene-batched one (images fed back; it takes no latent
+        feedthrough). At S = 1 it runs the launches of
+        ``dispatch_autoregressive_many`` with the same draws."""
+        if limit_frames is not None:
+            target = self._take(target, np.arange(min(limit_frames, len(target.index))))
+        ctx_u8 = self._tensor(self._to_u8(context.images[:1]))
+        c_extr, c_intr = context.extrinsics[:1], context.intrinsics[:1]
+        n_t = len(target.index)
+        n_initial = min(self.num_anchors, n_t)
+
+        pending: VideoSampler.Pending = []
+        pos = self._pad_cols(np.arange(n_initial), self.num_anchors)
+        images = self._run(ctx_u8, c_extr, c_intr, target.extrinsics[pos],
+                           target.intrinsics[pos], 0, generator)[:n_initial]
+        pending.append((images, [(i, int(target.index[i])) for i in range(n_initial)]))
+        last_pos, last = n_initial - 1, images[n_initial - 1]
+        start = n_initial
+        while start < n_t:
+            end = min(start + self.group_size, n_t)
+            pos = self._pad_cols(np.arange(start, end), self.group_size)
+            images = self._run(
+                torch.cat([ctx_u8, last[None]]),
+                np.concatenate([c_extr, target.extrinsics[[last_pos]]]),
+                np.concatenate([c_intr, target.intrinsics[[last_pos]]]),
+                target.extrinsics[pos], target.intrinsics[pos], 1, generator)[:end - start]
+            pending.append((images, [(i, int(target.index[p]))
+                                     for i, p in enumerate(range(start, end))]))
+            last_pos, last = end - 1, images[end - 1 - start]
+            start = end
         return pending

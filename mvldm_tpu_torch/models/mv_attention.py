@@ -11,7 +11,7 @@ makes single-launch batched CFG exact.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Literal, Optional
 
 import torch
 import torch.nn as nn
@@ -30,12 +30,18 @@ from .layers import (
 
 @dataclass
 class SpatialTransformer3DCfg:
-    """The fields of reference ``mvdream/attention.py:23-32`` that the model
-    reads."""
+    """Reference ``mvdream/attention.py:23-32``; the block reads num_heads,
+    num_layers and d_dot (the rest are the config group's fields, read by
+    nothing, as in the JAX package)."""
 
+    name: Literal["spatial_transformer_3d"] = "spatial_transformer_3d"
     num_heads: int = 8
     num_layers: int = 1
     d_dot: Optional[int] = None  # default d_in // num_heads
+    d_mlp: Optional[int] = None
+    d_mlp_multiplier: Optional[int] = None
+    downscale: int = 1
+    pos_enc: bool = False
 
 
 def view_key_bias(view_mask: torch.Tensor, tokens_per_view: int) -> torch.Tensor:

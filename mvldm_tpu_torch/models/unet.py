@@ -1,6 +1,8 @@
 """Multi-view UNet (counterpart of ``mvldm_tpu/models/unet.py``): the SD2.1
 ``UNet2DConditionModel`` topology with cross-view attention after each
-stage whose feature map is at most ``cross_view_max_size`` square.
+stage whose feature map is at most ``cross_view_max_size`` square: a
+``SpatialTransformer3D``, or a ``StandardTransformer`` when
+``multi_view_attention.name`` is "standard".
 
 Parameter names follow the reference Lightning checkpoint's denoiser:
 ``unet.*`` (diffusers names) and ``cross_attn_blocks_{encoder,mid,decoder}.*``.
@@ -24,7 +26,7 @@ The public forward keeps the JAX layout: (b, v, h, w, c) in and out.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import List, Literal, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -40,6 +42,7 @@ from .layers import (
     timestep_embedding,
 )
 from .mv_attention import SpatialTransformer3D, SpatialTransformer3DCfg
+from .standard_transformer import CrossAttentionCfg, StandardTransformer
 
 
 @dataclass
@@ -70,15 +73,19 @@ class UNetBackboneCfg:
 
 @dataclass
 class MultiViewUNetCfg:
-    """The fields of reference ``mvunet.py:31-40`` that shape the model."""
+    """Reference ``mvunet.py:31-40``; ``use_ray_encoding`` and
+    ``pretrained_from`` are read by nothing, as in the JAX package."""
 
+    name: Literal["mv_unet"] = "mv_unet"
     autoencoder: UNetBackboneCfg = field(default_factory=UNetBackboneCfg)
-    multi_view_attention: SpatialTransformer3DCfg = field(
+    multi_view_attention: Union[SpatialTransformer3DCfg, CrossAttentionCfg] = field(
         default_factory=SpatialTransformer3DCfg
     )
+    use_ray_encoding: bool = True
     encoder_conditioning: bool = True
     mid_conditioning: bool = True
     decoder_conditioning: bool = True
+    pretrained_from: Optional[str] = None
     up_block_attention: bool = False
     cross_view_max_size: int = 32
 
@@ -162,7 +169,9 @@ class MultiViewUNet(nn.Module):
 
         mv = cfg.multi_view_attention
 
-        def cross(c: int) -> SpatialTransformer3D:
+        def cross(c: int) -> nn.Module:
+            if mv.name == "standard":
+                return StandardTransformer(mv, c)
             return SpatialTransformer3D(mv, c, groups)
 
         if cfg.encoder_conditioning:

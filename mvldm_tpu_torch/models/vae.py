@@ -32,6 +32,11 @@ class AutoencoderKLCfg:
 
 @dataclass
 class AutoencoderCfg:
+    """Registry-level cfg; ``pretrained_from`` is not read (weights come
+    from ``checkpointing.load``)."""
+
+    name: str = "kl"
+    pretrained_from: Optional[str] = None
     kwargs: AutoencoderKLCfg = field(default_factory=AutoencoderKLCfg)
 
 

@@ -9,7 +9,11 @@ key names and torch layouts (``denoiser.unet.*``,
 which the port's modules load with ``load_state_dict`` as it is.
 
 Layouts: Flax HWIO conv kernels -> torch OIHW; Flax (in, out) dense kernels
--> torch (out, in); norm ``scale`` -> ``weight``.
+-> torch (out, in); norm ``scale`` -> ``weight``. The standard cross-view
+block (``multi_view_attention: standard``) keeps the JAX module's names, as
+the reference converter has no mapping for it; its ``upscaler`` is a Flax
+``ConvTranspose``, whose kernel is a torch ``ConvTranspose2d`` weight
+flipped in space, laid out (in, out, kh, kw).
 """
 
 from __future__ import annotations
@@ -59,8 +63,10 @@ def _segment(seg: str):
     return seg
 
 
-def _leaf(name: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
+def _leaf(name: str, value: np.ndarray, module: str) -> Tuple[str, np.ndarray]:
     if name == "kernel":
+        if module == "upscaler":  # flipped HWIO -> (in, out, kh, kw)
+            return "weight", np.transpose(value[::-1, ::-1], (2, 3, 0, 1))
         if value.ndim == 4:  # HWIO -> OIHW
             return "weight", np.transpose(value, (3, 2, 0, 1))
         return "weight", value.T
@@ -84,7 +90,8 @@ def jax_to_torch_state_dict(params: Mapping[str, Mapping[str, Any]]
                         head, segs = re.sub(pat, rep, segs[0]), segs[1:]
                         break
             names = [s for s in (_segment(s) for s in segs) if s is not None]
-            leaf, arr = _leaf(path[-1], np.asarray(value, dtype=np.float32))
+            leaf, arr = _leaf(path[-1], np.asarray(value, dtype=np.float32),
+                              path[-2] if len(path) > 1 else "")
             key = ".".join([head, *names, leaf])
-            out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+            out[key] = torch.tensor(np.ascontiguousarray(arr))
     return out

@@ -1,7 +1,8 @@
 """The port's sampling engine, geometry and ray encodings against the JAX
 package, fp32 on CPU: a full tiny DDIM loop with injected noise and context
-latents in batched and sequential CFG, and the ray channels of every
-encoding option."""
+latents in batched and sequential CFG, a tiny ancestral DDPM loop with the
+JAX engine's own draws injected, and the ray channels of every encoding
+option."""
 
 import jax
 import jax.numpy as jnp
@@ -14,7 +15,14 @@ from mvldm_tpu.geometry.camera_utils import absolute_to_relative_camera as jax_r
 from mvldm_tpu.geometry.projection import get_world_rays as jax_rays
 from mvldm_tpu.geometry.projection import sample_image_grid as jax_grid
 from mvldm_tpu_torch.diffusion.engine import DiffusionEngine, ModelCfg, unet_in_channels
-from mvldm_tpu_torch.diffusion.schedulers import DDIMScheduler, DDIMSchedulerKwargs
+from mvldm_tpu.diffusion.schedulers import DDPMScheduler as JaxDDPM
+from mvldm_tpu.diffusion.schedulers import DDPMSchedulerKwargs as JaxDDPMKw
+from mvldm_tpu_torch.diffusion.schedulers import (
+    DDIMScheduler,
+    DDIMSchedulerKwargs,
+    DDPMScheduler,
+    DDPMSchedulerKwargs,
+)
 from mvldm_tpu_torch.geometry.camera_utils import absolute_to_relative_camera
 from mvldm_tpu_torch.geometry.projection import get_world_rays, sample_image_grid
 
@@ -54,6 +62,42 @@ def test_ddim_loop_matches_jax_engine(checkpoint, cfg_mode):  # noqa: F811
     assert got.shape == ref.shape == (B, V_T, HL, HL, 4)
     assert np.abs(ref).mean() > 1e-2
     np.testing.assert_allclose(got, ref, rtol=2e-3, atol=2e-3)
+
+
+def test_ddpm_loop_matches_jax_engine(checkpoint):  # noqa: F811
+    """4 ancestral steps: the JAX engine draws its initial noise from the
+    sampling key and each step's noise from the keys it splits off
+    ``fold_in(key, 1)`` (``engine.py:453-463``); the port gets those draws
+    injected."""
+    ckpt, params = checkpoint
+    extr, intr = scene_cameras()
+    ctx_latents = np.random.default_rng(12).normal(size=(B, V_C, HL, HL, 4)).astype(np.float32)
+    shape = (B, V_T, HL, HL, 4)
+    key = jax.random.PRNGKey(4)
+    initial = np.array(jax.random.normal(key, shape, dtype=jnp.float32))
+    step_noise = np.stack([np.array(jax.random.normal(k, shape, dtype=jnp.float32))
+                           for k in jax.random.split(jax.random.fold_in(key, 1), STEPS)])
+
+    jax_engine = build_engine("batched")
+    jax_engine.scheduler = JaxDDPM.create(JaxDDPMKw(clip_sample=False), STEPS)
+    ref = np.asarray(jax.jit(jax_engine.sample_latents,
+                             static_argnames=("num_target_views",))(
+        params["unet"], jnp.asarray(ctx_latents), jnp.asarray(extr),
+        jnp.asarray(intr), num_target_views=V_T, rng=key))
+
+    engine = port_engine(ckpt, "batched")
+    engine.scheduler = DDPMScheduler.create(DDPMSchedulerKwargs(clip_sample=False), STEPS)
+    got = engine.sample_latents(
+        torch.from_numpy(ctx_latents), torch.from_numpy(extr), torch.from_numpy(intr), V_T,
+        initial_noise=torch.from_numpy(initial), step_noise=torch.from_numpy(step_noise)).numpy()
+    assert np.abs(ref).mean() > 1e-2
+    np.testing.assert_allclose(got, ref, rtol=2e-3, atol=2e-3)
+    # The draws matter: the posterior mean alone lands elsewhere.
+    mean_only = engine.sample_latents(
+        torch.from_numpy(ctx_latents), torch.from_numpy(extr), torch.from_numpy(intr), V_T,
+        initial_noise=torch.from_numpy(initial),
+        step_noise=torch.zeros(step_noise.shape)).numpy()
+    assert np.abs(mean_only - ref).max() > 1e-2
 
 
 def test_auto_cfg_threshold(checkpoint):  # noqa: F811

@@ -872,8 +872,8 @@ def test_f32_paths_take_the_hand_kernels_only(cuda, monkeypatch):
 def _tiny_f32_engine(device):
     """The tiny topology of ``tests/test_torch_goldens.py`` (2 stages of 32
     and 64 channels, 4 heads, a 4-level VAE of 16-32 channels) with
-    ``builder.init_weights``'s seeded weights, in f32 on ``device``."""
-    from mvldm_tpu_torch.builder import MVLDM, init_weights
+    ``builder.init_params``'s seeded weights, in f32 on ``device``."""
+    from mvldm_tpu_torch.builder import MVLDM, init_params
     from mvldm_tpu_torch.diffusion.engine import DiffusionEngine, ModelCfg
     from mvldm_tpu_torch.diffusion.schedulers import DDIMScheduler, DDIMSchedulerKwargs
     from mvldm_tpu_torch.models.mv_attention import SpatialTransformer3DCfg
@@ -892,7 +892,7 @@ def _tiny_f32_engine(device):
             block_out_channels=(16, 32, 32, 32), layers_per_block=1, norm_num_groups=8)),
         use_cfg=True, cfg_scale=3.0, use_ray_encoding=False)
     model = MVLDM(cfg)
-    init_weights(model, 0)
+    init_params(model, 0)
     model = model.to(device=device, dtype=torch.float32)
     scheduler = DDIMScheduler.create(
         DDIMSchedulerKwargs(clip_sample=False, prediction_type="epsilon"), num_inference_steps=4)
