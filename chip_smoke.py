@@ -98,6 +98,22 @@ Phases, each fatal on failure (non-zero exit, no final result line):
    step in f32 on the card against float64 on the host
    (DDPM_STEP_REL_BOUND); (e)'s UNet in bf16 on the card against the host
    in f32 (UNET_REL_L2_BOUND). It runs after phase 6, before phase 7.
+12. cli_train: the training CLI (``python -m mvldm_tpu_torch.scripts.main``,
+   through ``main.main`` on the card) at ``+experiment=baseline`` (batch 6,
+   2 context + 3 target views, accumulation 2, bf16-mixed, seeded weights)
+   on a synthetic RE10K train and test stage it writes (2 scenes each of
+   TRAIN_FRAMES JPEG frames at 360x640, room for the baseline sampler's 50
+   to 180 frames between context views): (f) ``mode=train`` for 4 steps,
+   validation and checkpoints every 2 (val batch 2, both checkpoints kept):
+   finite losses in metrics.jsonl, two optimizer updates that moved the
+   masters, ``checkpoints/step_000000002`` and ``..04``, ``val/step_2`` and
+   ``val/step_4`` with cameras.png, distributions.png and a grid a scene;
+   (g) (f) again to 6 steps, resuming at 4; (h) ``mode=val`` on that
+   directory, its weights read by ``restore_partial`` alone, into ``val/``;
+   (i) ``+experiment=tpu_fast`` for 4 steps: remat, mu and nu stored in
+   bf16, a peak below (f)'s. Each run: wall time, peak memory, launches
+   equal to its plan's (TRAIN_CLI_LAUNCHES) and no f32-route launch. It
+   runs last.
 
 Every result is one JSON line. The last two lines are the card as
 ``nvidia-smi`` names it and ``{"ok": true, "device": {...}}``.
@@ -158,6 +174,31 @@ CLI_LAUNCHES = {
                  "fused_ln_geglu_ff": 200},
 }
 CLI_FRAMES = 24  # frames a synthetic scene of the cli phase holds
+# Kernel launches of each run of the cli_train phase, as the training CLI's
+# launch plan takes them (tests/test_torch_port_launch_plan.py counts them
+# again on the meta device): a training step at batch 6 launches 26 / 8 / 8
+# forward and 25 / 25 backward kernels (43 / 16 / 16 forward under remat);
+# a validation scene (1 + 3 views, 70 DDIM steps) 1192 / 560 / 560.
+_TRAIN_STEP = (26, 8, 8, 25, 25)
+_TRAIN_STEP_REMAT = (43, 16, 16, 25, 25)
+_VAL_SCENE = (1192, 560, 560, 0, 0)
+TRAIN_KERNELS = ("flash_attention", "fused_ln_self_attention", "fused_ln_geglu_ff",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+
+def _plan(steps: int, step: tuple, scenes: int) -> dict:
+    return {k: steps * a + scenes * b for k, a, b in zip(TRAIN_KERNELS, step, _VAL_SCENE)}
+
+
+TRAIN_CLI_LAUNCHES = {
+    "train": _plan(4, _TRAIN_STEP, 2 * 2),        # (f): hooks at steps 2 and 4, 2 scenes each
+    "train_resume": _plan(2, _TRAIN_STEP, 2),     # (g): steps 5-6, a hook at step 6
+    "val": _plan(0, _TRAIN_STEP, 2),              # (h): one val batch of 2 scenes
+    "train_tpu_fast": _plan(4, _TRAIN_STEP_REMAT, 0),  # (i): remat, no hook by step 4
+}
+# Frames of a synthetic scene of the cli_train phase: the baseline's bounded
+# sampler places 50 to 180 frames between the context views.
+TRAIN_FRAMES = 181
 # One DDPM ancestral step in f32 on the card against float64 on the host.
 DDPM_STEP_REL_BOUND = 1e-6
 TRAIN_LOSS_REL_BOUND = 3e-2
@@ -1369,6 +1410,206 @@ def train_phase(card: str, engine, kernels, f32_kernels):
     return state, step, batch, gen, launches
 
 
+# ------------------------------------------------------------- cli_train
+
+def write_train_dataset(root) -> dict:
+    """A synthetic RE10K train and test stage, 2 scenes of TRAIN_FRAMES
+    JPEG frames at 360x640 each (one chunk a stage), written by the port's
+    ``save_chunk``; the val loader reads the test stage."""
+    from mvldm_tpu_torch.data.chunk_reader import save_chunk
+
+    frames = [make_frame(i) for i in range(TRAIN_FRAMES + 100)]
+    keys = {}
+    for stage in ("train", "test"):
+        (root / stage).mkdir(parents=True)
+        keys[stage] = [f"scene{stage}{s:04d}" for s in range(2)]
+        save_chunk([{"key": key, "cameras": make_cameras(TRAIN_FRAMES),
+                     "images": frames[100 * s:100 * s + TRAIN_FRAMES]}
+                    for s, key in enumerate(keys[stage])], root / stage / "000000.torch")
+        (root / stage / "index.json").write_text(
+            json.dumps({k: "000000.torch" for k in keys[stage]}))
+    return keys
+
+
+def check_val_dir(val_dir, scenes, what: str) -> None:
+    """cameras.png, distributions.png and one comparison grid a scene."""
+    from PIL import Image
+
+    names = sorted(p.name for p in val_dir.glob("*.png"))
+    want = sorted(["cameras.png", "distributions.png"] + [f"{k}.png" for k in scenes])
+    if names != want:
+        fail(f"{what}: {val_dir} holds {names}, not {want}")
+    for name in names:
+        img = np.asarray(Image.open(val_dir / name))
+        if img.dtype != np.uint8 or img.ndim != 3 or img.min() == img.max():
+            fail(f"{what}: {name} is {img.dtype} {img.shape}, range {img.min()}..{img.max()}")
+
+
+def saved_state(run_dir, step: int) -> dict:
+    """The saved train state of ``step``, memory-mapped on the host."""
+    path = run_dir / "checkpoints" / f"step_{step:09d}" / "state.pt"
+    if not path.is_file():
+        fail(f"no checkpoint {path}")
+    return torch.load(path, map_location="cpu", mmap=True, weights_only=True)
+
+
+def off_bf16_share(params: dict) -> float:
+    """Share of master elements off the bf16 grid (low 16 bits set): the
+    masters start as the bf16 module's weights, so an update moves them
+    off it."""
+    off = sum(int(((p.view(torch.int32) & 0xFFFF) != 0).sum()) for p in params.values())
+    return off / sum(p.numel() for p in params.values())
+
+
+def changed_share(a: dict, b: dict) -> float:
+    return sum(int((a[k] != b[k]).sum()) for k in a) / sum(p.numel() for p in a.values())
+
+
+def cli_train_phase(card: str, kernels, f32_kernels) -> dict:
+    """The training CLI, ``python -m mvldm_tpu_torch.scripts.main`` as a
+    user runs it (``main.main``, on the card), at ``+experiment=baseline``
+    (the 0.93B UNet, the SD2.1 VAE, 256 px, batch 6 of 2 context + 3 target
+    views, accumulation 2, bf16-mixed, seeded weights) on a synthetic RE10K
+    train and test stage written here: (f) 4 steps, validation and a
+    checkpoint every 2 (val batch 2); (g) (f) again to 6 steps, resuming at
+    4; (h) ``mode=val`` on that directory; (i) ``+experiment=tpu_fast``
+    (remat, bf16 moments by stochastic rounding), 4 steps. Each run's
+    launches must be TRAIN_CLI_LAUNCHES's, with no f32-route launch; its
+    losses finite, its checkpoints and validation grids where the JAX CLI
+    writes them. Returns each run's launch counts."""
+    import shutil
+    from pathlib import Path
+
+    from mvldm_tpu_torch.scripts import main as main_script
+    from mvldm_tpu_torch.training.checkpoint import CheckpointManager
+
+    root = Path(__file__).resolve().parent / "build" / "cli_train_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    keys = write_train_dataset(root / "data")
+    data_s = time.perf_counter() - t0
+    run_dir = root / "runs" / "baseline"
+    common = ["+experiment=baseline", f"dataset.root={root / 'data'}",
+              f"output_dir={run_dir}"]
+    train = ["mode=train", "trainer.val_check_interval=2",
+             "checkpointing.every_n_train_steps=2", "data_loader.val.batch_size=2",
+             "checkpointing.save_top_k=2"]
+    fast_dir = root / "runs" / "tpu_fast"
+    runs = {
+        "train": common + train + ["trainer.max_steps=4"],
+        "train_resume": common + train + ["trainer.max_steps=6"],
+        "val": common + ["mode=val", "data_loader.val.batch_size=2"],
+        "train_tpu_fast": ["+experiment=baseline", "+experiment=tpu_fast", "mode=train",
+                           "trainer.max_steps=4", f"dataset.root={root / 'data'}",
+                           f"output_dir={fast_dir}"],
+    }
+    partial_restores = []
+    restore_partial = CheckpointManager.restore_partial
+
+    def counted_restore_partial(self, step, keys_):
+        partial_restores.append((step, list(keys_)))
+        return restore_partial(self, step, keys_)
+
+    CheckpointManager.restore_partial = counted_restore_partial
+    by_run, peaks = {}, {}
+    try:
+        for name, argv in runs.items():
+            if name == "train_tpu_fast":
+                shutil.rmtree(run_dir)  # (h) has read it; free its checkpoints' disk
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated() / 2 ** 30
+            torch.cuda.reset_peak_memory_stats()
+            for fn in kernels + f32_kernels:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            main_script.main(argv)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches, f32_launches = _counts(kernels), _counts(f32_kernels)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            peaks[name] = peak
+            out = fast_dir if name == "train_tpu_fast" else run_dir
+            rec = dict(phase="cli_train", run=name, argv=" ".join(argv),
+                       what="scripts.main.main on the card, wall time of the call (engine "
+                       "build with seeded weights on the host, data, steps, checkpoints, "
+                       "validation sampling and its PNGs)",
+                       wall_s=wall_s, peak_memory_gb=peak, held_before_gb=held,
+                       launches=launches, expected_launches=TRAIN_CLI_LAUNCHES[name],
+                       f32_launches=f32_launches, card=card)
+            if name != "val":
+                log = [json.loads(line) for line in
+                       (out / "metrics.jsonl").read_text().splitlines()]
+                rec["metrics"] = log
+                rec["steps_per_s"] = log[-1]["steps_per_sec"]
+                losses = [r["loss/diffusion"] for r in log]
+                if not losses or not all(np.isfinite(x) for x in losses):
+                    fail(f"cli_train {name}: losses {losses}")
+            checks = cli_train_checks(name, out, keys, partial_restores)
+            emit(**rec, **checks)
+            if launches != TRAIN_CLI_LAUNCHES[name]:
+                fail(f"cli_train {name}: launched {launches}, not {TRAIN_CLI_LAUNCHES[name]}")
+            if any(f32_launches.values()):
+                fail(f"cli_train {name}: the bf16 CLI launched f32 kernels: {f32_launches}")
+            by_run[name] = launches
+    finally:
+        CheckpointManager.restore_partial = restore_partial
+    if not peaks["train_tpu_fast"] < peaks["train"]:
+        fail(f"cli_train: tpu_fast peak {peaks['train_tpu_fast']:.3f} GiB not below the "
+             f"baseline's {peaks['train']:.3f} GiB")
+    emit(phase="cli_train_data", what="writing the synthetic train and test stages",
+         seconds=data_s, frames_per_scene=TRAIN_FRAMES, card=card)
+    return by_run
+
+
+def cli_train_checks(name: str, out, keys: dict, partial_restores: list) -> dict:
+    """The output tree and saved states of one cli_train run (see
+    :func:`cli_train_phase`); fatal on a mismatch."""
+    scenes = keys["test"]
+    ckpts = sorted(p.name for p in (out / "checkpoints").glob("step_*"))
+    if name == "train":
+        if ckpts != ["step_000000002", "step_000000004"]:
+            fail(f"cli_train {name}: checkpoints {ckpts}")
+        s2, s4 = saved_state(out, 2), saved_state(out, 4)
+        counts = (s2["opt_state"]["count"], s4["opt_state"]["count"])
+        if (s2["step"], s4["step"]) != (2, 4) or counts != (1, 2):
+            fail(f"cli_train {name}: steps {s2['step']}, {s4['step']}, updates {counts}")
+        moved, changed = off_bf16_share(s2["params"]), changed_share(s2["params"], s4["params"])
+        if not moved > 0 or not changed > 0:
+            fail(f"cli_train {name}: masters unchanged (off the init {moved}, step 2 -> 4 "
+                 f"{changed})")
+        for step in (2, 4):
+            check_val_dir(out / "val" / f"step_{step}", scenes, f"cli_train {name}")
+        return {"updates": counts, "masters_off_init_share": moved,
+                "masters_changed_2_to_4_share": changed}
+    if name == "train_resume":
+        log = (out / "metrics.jsonl").read_text().splitlines()
+        s6 = saved_state(out, 6)
+        if ckpts != ["step_000000004", "step_000000006"] or s6["step"] != 6 \
+                or s6["opt_state"]["count"] != 3 or json.loads(log[-1])["step"] != 6:
+            fail(f"cli_train {name}: checkpoints {ckpts}, step {s6['step']}, "
+                 f"updates {s6['opt_state']['count']}")
+        check_val_dir(out / "val" / "step_6", scenes, f"cli_train {name}")
+        return {"updates": s6["opt_state"]["count"], "checkpoints": ckpts}
+    if name == "val":
+        if partial_restores != [(6, ["params"])]:
+            fail(f"cli_train {name}: restore_partial calls {partial_restores}")
+        check_val_dir(out / "val", scenes, f"cli_train {name}")
+        return {"restore_partial": partial_restores}
+    s4 = saved_state(out, 4)
+    dtypes = {m: sorted({str(t.dtype) for t in s4["opt_state"][m].values()}) for m in ("mu", "nu")}
+    if dtypes != {"mu": ["torch.bfloat16"], "nu": ["torch.bfloat16"]} \
+            or s4["opt_state"]["count"] != 2:
+        fail(f"cli_train {name}: moments {dtypes}, updates {s4['opt_state']['count']}")
+    from mvldm_tpu_torch.config import compose, load_typed_root_config
+
+    remat = load_typed_root_config(compose(["+experiment=baseline", "+experiment=tpu_fast"]
+                                           )).trainer.remat
+    if not remat:
+        fail(f"cli_train {name}: trainer.remat is {remat}")
+    return {"moment_dtypes": dtypes, "remat": remat, "updates": s4["opt_state"]["count"]}
+
+
 def train_profile_phase(card: str, state, step, batch, gen) -> None:
     from torch.profiler import ProfilerActivity, profile
 
@@ -1477,6 +1718,9 @@ def main() -> int:
     state, step, batch, train_gen, train_launches = train_phase(
         card, engine, forward + backward, F32_KERNELS)
     train_profile_phase(card, state, step, batch, train_gen)
+    del engine, state, step, batch, train_gen
+    torch.cuda.empty_cache()
+    cli_train_launches = cli_train_phase(card, forward + backward, F32_KERNELS)
 
     f32_meta = {
         "flash_attention_f32": "mvldm_tpu/ops/attention.py:76",
@@ -1502,7 +1746,8 @@ def main() -> int:
     }
     def bf16_paths(name: str) -> dict:
         return {"sampling": sampling_launches.get(name, 0), "training": train_launches[name],
-                **{f"cli_{run}": counts.get(name, 0) for run, counts in cli_launches.items()}}
+                **{f"cli_{run}": counts.get(name, 0) for run, counts in cli_launches.items()},
+                **{f"cli_{run}": counts[name] for run, counts in cli_train_launches.items()}}
 
     emit(kernels=[
         dict(name=name, route="cuda", source=meta[name][0], replaces=meta[name][1],

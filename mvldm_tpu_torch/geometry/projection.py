@@ -1,7 +1,8 @@
 """Camera projection math (counterpart of
-``mvldm_tpu/geometry/projection.py``, the parts the sampling path uses):
-pixel-grid sampling and world rays from normalized OpenCV-style intrinsics
-and camera-to-world extrinsics. Shape-polymorphic over leading dims."""
+``mvldm_tpu/geometry/projection.py``, the parts the sampling path and the
+drawing overlays use): projection of world points, pixel-grid sampling and
+world rays from normalized OpenCV-style intrinsics and camera-to-world
+extrinsics. Shape-polymorphic over leading dims."""
 
 from __future__ import annotations
 
@@ -22,6 +23,26 @@ def homogenize_vectors(vectors: torch.Tensor) -> torch.Tensor:
 
 def transform_rigid(coords: torch.Tensor, transformation: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...ij,...j->...i", transformation, coords)
+
+
+def project_camera_space(points: torch.Tensor, intrinsics: torch.Tensor,
+                         epsilon: float = float(torch.finfo(torch.float32).eps),
+                         infinity: float = 1e8) -> torch.Tensor:
+    """Camera-space points -> normalized image xy."""
+    points = points / (points[..., -1:] + epsilon)
+    points = torch.nan_to_num(points, posinf=infinity, neginf=-infinity)
+    points = torch.einsum("...ij,...j->...i", intrinsics, points)
+    return points[..., :-1]
+
+
+def project(points: torch.Tensor, extrinsics: torch.Tensor, intrinsics: torch.Tensor,
+            epsilon: float = float(torch.finfo(torch.float32).eps)
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """World points through a camera-to-world ``extrinsics``: (normalized
+    xy, in front of the camera)."""
+    points = transform_rigid(homogenize_points(points), torch.linalg.inv(extrinsics))[..., :-1]
+    in_front_of_camera = points[..., -1] >= 0
+    return project_camera_space(points, intrinsics, epsilon=epsilon), in_front_of_camera
 
 
 def unproject(coordinates: torch.Tensor, z: torch.Tensor,

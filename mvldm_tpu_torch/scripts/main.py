@@ -1,13 +1,17 @@
-"""Test-mode entry point (counterpart of ``mvldm_tpu/scripts/main.py``):
+"""Train / validate / test entry point (counterpart of
+``mvldm_tpu/scripts/main.py``):
 
-    python -m mvldm_tpu_torch.scripts.main +experiment=baseline mode=test \\
-        dataset.root=<path> checkpointing.load=<ckpt> test.sampling_mode=anchored
+    python -m mvldm_tpu_torch.scripts.main +experiment=baseline mode=train \\
+        dataset.root=<path> output_dir=outputs/run1
 
-``mode=test`` samples videos over the test set, anchored or
-autoregressive, with skip-existing idempotency and GIF/MP4 export
-(reference ``test_step:1057`` + ``on_test_end:1069``). It runs on the card;
-:func:`main` exits non-zero without one. ``mode=train`` and ``mode=val``
-are not ported yet.
+Modes: ``train`` (the train loop with auto-resume, checkpoints and the
+in-training validation hook), ``val`` (one validation sampling round from
+the saved state, comparison grids written to ``<output_dir>/val``),
+``test`` (video sampling over the test set, anchored or autoregressive,
+with skip-existing idempotency and GIF/MP4 export; reference
+``test_step:1057`` + ``on_test_end:1069``). Every mode runs on one card,
+whatever ``trainer.strategy`` says; :func:`main` exits non-zero without
+one.
 """
 
 from __future__ import annotations
@@ -27,8 +31,12 @@ from ..data.view_samplers import StepTracker
 from ..diffusion.engine import DiffusionEngine
 from ..diffusion.video_sampling import SceneViews, VideoSampler
 from ..training.checkpoint import CheckpointManager
-from ..training.trainer import load_params
+from ..training.optim import SetToZero, build_lr_schedule, build_optimizer
+from ..training.trainer import Trainer, TrainState, load_params
 from ..utils.image_io import load_image, save_gif, save_image, save_video
+from ..visualization import add_label, hcat, vcat
+from ..visualization.color_map import get_hist_image
+from ..visualization.validation_in_3d import render_cameras
 
 
 def resolve_device(device=None) -> torch.device:
@@ -42,11 +50,16 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def dispatch_generator(device: torch.device, seed: int, fold: int) -> torch.Generator:
+def dispatch_generator(device: torch.device, seed: int, *folds: int) -> torch.Generator:
     """The generator of one dispatch, derived from the run's seed and the
-    dispatch's fold number (the JAX loop's ``fold_in(rng, fold)``)."""
-    state = np.random.SeedSequence([seed, fold]).generate_state(1)[0]
+    dispatch's fold numbers (the JAX loop's ``fold_in(rng, fold)``, once
+    for each)."""
+    state = np.random.SeedSequence([seed, *folds]).generate_state(1)[0]
     return torch.Generator(device).manual_seed(int(state))
+
+
+def build_data_module(cfg: RootCfg, step_tracker: StepTracker) -> DataModule:
+    return DataModule(cfg.dataset, cfg.dataset.view_sampler, cfg.data_loader, step_tracker)
 
 
 def scene_views_from_batch(batch_np, role: str, i: int = 0) -> SceneViews:
@@ -57,12 +70,145 @@ def scene_views_from_batch(batch_np, role: str, i: int = 0) -> SceneViews:
                       index=np.asarray(views["index"][i]))
 
 
+def base_lr(cfg: RootCfg) -> float:
+    """``optimizer.lr``, times the effective batch (accumulation x devices x
+    batch) under ``optimizer.scale_lr`` (reference
+    ``diffusion_wrapper.py:156-167``); a run here has one device."""
+    lr = cfg.optimizer.lr
+    if cfg.optimizer.scale_lr:
+        devices = 1
+        lr = lr * (cfg.trainer.accumulate_grad_batches * devices
+                   * cfg.data_loader.train.batch_size)
+    return lr
+
+
+def run_train(cfg: RootCfg, device=None) -> TrainState:
+    """Train on ``device`` ("cuda" when None), resuming from the newest
+    checkpoint under ``<output_dir>/checkpoints``. One device whatever
+    ``trainer.strategy`` says. ``freeze.autoencoder`` is structural (the VAE
+    is never optimized); ``freeze.denoiser`` zeroes every update."""
+    device = resolve_device(device)
+    seed = cfg.seed if cfg.seed is not None else 0
+    engine = build_engine(cfg, device)
+    engine.vae.requires_grad_(False)
+    load_pretrained(cfg, engine)
+
+    step_tracker = StepTracker(cfg.train.step_offset)
+    dm = build_data_module(cfg, step_tracker)
+    tx = build_optimizer(cfg.optimizer, build_lr_schedule(base_lr(cfg), cfg.optimizer.scheduler),
+                         gradient_clip_val=cfg.trainer.gradient_clip_val,
+                         accumulate_grad_batches=cfg.trainer.accumulate_grad_batches)
+    if cfg.freeze.denoiser:
+        print("freeze.denoiser=true: denoiser updates disabled")
+        tx = SetToZero()
+    run_dir = Path(cfg.output_dir)
+    run_dir.mkdir(parents=True, exist_ok=True)
+
+    val_hook = None
+    if cfg.trainer.validate and cfg.trainer.val_check_interval:
+        val_hook = make_val_hook(cfg, engine, run_dir, seed)
+    trainer = Trainer(engine, tx, dm, run_dir, max_steps=cfg.trainer.max_steps,
+                      num_context_views=cfg.dataset.view_sampler.num_context_views,
+                      checkpoint_every=cfg.checkpointing.every_n_train_steps,
+                      save_top_k=cfg.checkpointing.save_top_k, use_ema=cfg.model.ema,
+                      step_tracker=step_tracker, val_hook=val_hook,
+                      val_check_interval=cfg.trainer.val_check_interval,
+                      task_steps=cfg.trainer.task_steps)
+    state = trainer.maybe_restore(trainer.init_state())
+    return trainer.fit(state, seed)
+
+
+def _render_val_batch(engine: DiffusionEngine, batch_np, out_dir: Path,
+                      device: torch.device, seed: int, *folds: int) -> None:
+    """Render one validation batch (reference ``validation_step:492-544``):
+    camera frusta, context | GT | samples comparison grids, value
+    histograms. Scene ``i`` samples its targets from its first context view
+    with the generator of (seed, *folds, i), the JAX ``fold_in(rng, i)``."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    save_image(hcat(*render_cameras(batch_np, 256)), out_dir / "cameras.png")
+
+    all_samples, all_targets = [], []
+    for i in range(batch_np["context"]["image"].shape[0]):
+        ctx = scene_views_from_batch(batch_np, "context", i)
+        tgt = scene_views_from_batch(batch_np, "target", i)
+        extr = np.concatenate([ctx.extrinsics[:1], tgt.extrinsics], axis=0)
+        intr = np.concatenate([ctx.intrinsics[:1], tgt.intrinsics], axis=0)
+        out = engine.sample(torch.from_numpy(ctx.images[:1])[None],
+                            torch.from_numpy(extr)[None], torch.from_numpy(intr)[None],
+                            num_target_views=len(tgt.index),
+                            generator=dispatch_generator(device, seed, *folds, i))
+        samples = out[0].float().cpu().numpy()
+        grid = hcat(add_label(vcat(*list(ctx.images[:1])), "Context Views"),
+                    add_label(vcat(*list(tgt.images)), "Original Targets"),
+                    add_label(vcat(*list(samples)), "Sampled Targets"))
+        scene = batch_np["scene"][i]
+        save_image(grid, out_dir / f"{scene}.png")
+        print(f"Wrote {out_dir / f'{scene}.png'}")
+        all_samples.append(samples)
+        all_targets.append(tgt.images)
+
+    # Value-distribution histograms (reference validation_step:534-544).
+    hist = hcat(get_hist_image(np.concatenate(all_targets), title="Target Distribution"),
+                get_hist_image(np.concatenate(all_samples), title="Sampled Distribution"))
+    save_image(hist, out_dir / "distributions.png")
+
+
+def _render_first_val_batch(engine: DiffusionEngine, dm: DataModule, out_dir: Path,
+                            device: torch.device, seed: int, *folds: int) -> None:
+    """:func:`_render_val_batch` on the val loader's first batch (the
+    reference's limited val); the loader is closed after it."""
+    loader = dm.val_dataloader()
+    try:
+        for batch_np in loader:
+            _render_val_batch(engine, batch_np, out_dir, device, seed, *folds)
+            break
+    finally:
+        loader.close()
+
+
+def make_val_hook(cfg: RootCfg, engine: DiffusionEngine, run_dir: Path, seed: int):
+    """In-training validation (the reference runs ``validation_step`` every
+    ``val_check_interval`` steps, ``diffusion_wrapper.py:492-544``): one val
+    batch sampled with the current weights, or the EMA weights under
+    ``model.use_ema_sampling``, written under ``<run_dir>/val/step_<n>/``.
+    The module holds the weights training computes with, so EMA weights are
+    loaded for the hook and the masters put back after it."""
+    dm = build_data_module(cfg, StepTracker())  # independent of training's stream
+    device = engine.device
+
+    def val_hook(state: TrainState, step: int) -> None:
+        ema = cfg.model.use_ema_sampling and state.ema_params is not None
+        if ema:
+            load_params(engine.unet, state.ema_params)
+        try:
+            _render_first_val_batch(engine, dm, run_dir / "val" / f"step_{step}", device,
+                                    seed, 2, step)
+        finally:
+            if ema:
+                load_params(engine.unet, state.params)
+
+    return val_hook
+
+
+def run_val(cfg: RootCfg, device=None) -> None:
+    """One validation sampling round (reference ``validation_step:492-544``)
+    from the saved state: targets sampled from one context view, grids
+    written to ``<output_dir>/val``."""
+    device = resolve_device(device)
+    seed = cfg.seed if cfg.seed is not None else 0
+    engine = build_engine(cfg, device)
+    _load_eval_params(cfg, engine)
+    _render_first_val_batch(engine, build_data_module(cfg, StepTracker()),
+                            Path(cfg.output_dir) / "val", device, seed)
+
+
 def _load_eval_params(cfg: RootCfg, engine: DiffusionEngine) -> None:
     """Weights for sampling: the seeded init, then ``checkpointing.load``'s
     ``.ckpt``, then the latest saved train state under
     ``<output_dir>/checkpoints`` (``params``, or ``ema_params`` with
-    ``model.use_ema_sampling``). A state that cannot be restored is fatal
-    unless ``checkpointing.allow_init_weights``."""
+    ``model.use_ema_sampling``), read alone by ``restore_partial``. A state
+    that cannot be restored is fatal unless
+    ``checkpointing.allow_init_weights``."""
     load_pretrained(cfg, engine)
     ckpt_dir = Path(cfg.output_dir) / "checkpoints"
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir.exists() else None
@@ -71,7 +217,7 @@ def _load_eval_params(cfg: RootCfg, engine: DiffusionEngine) -> None:
         key = "ema_params" if cfg.model.use_ema_sampling else "params"
         print(f"Loading checkpoint step {latest} ({key})")
         try:
-            state = mgr.restore(latest, map_location="cpu")
+            state = mgr.restore_partial(latest, [key])
             if state.get(key) is None:
                 raise KeyError(f"the state has no {key}")
             load_params(engine.unet, state[key])
@@ -170,7 +316,7 @@ def run_test(cfg: RootCfg, device=None) -> None:
     engine = build_engine(cfg, device)
     _load_eval_params(cfg, engine)
 
-    dm = DataModule(cfg.dataset, cfg.dataset.view_sampler, cfg.data_loader, StepTracker())
+    dm = build_data_module(cfg, StepTracker())
     sampler = VideoSampler(engine, num_anchors_views=cfg.test.num_anchors_views,
                            ar_latent_feedthrough=cfg.test.ar_latent_feedthrough)
     test_dir = cfg.test.output_dir if str(cfg.test.output_dir) not in ("", ".") else None
@@ -203,14 +349,13 @@ def main(argv=None, device=None) -> None:
         np.random.seed(cfg.seed)
     print(f"mode={cfg.mode} output_dir={cfg.output_dir}")
     if cfg.mode == "train":
-        raise NotImplementedError("mode=train is not ported to mvldm_tpu_torch yet "
-                                  "(ROADMAP.md, Queue A item 7: the training CLI)")
-    if cfg.mode == "val":
-        raise NotImplementedError("mode=val is not ported to mvldm_tpu_torch yet "
-                                  "(ROADMAP.md, Queue A item 10: visualization)")
-    if cfg.mode != "test":
+        run_train(cfg, device)
+    elif cfg.mode == "val":
+        run_val(cfg, device)
+    elif cfg.mode == "test":
+        run_test(cfg, device)
+    else:
         raise ValueError(f"Unknown mode: {cfg.mode}")
-    run_test(cfg, device)
 
 
 if __name__ == "__main__":

@@ -64,3 +64,12 @@ class CheckpointManager:
     def restore(self, step: int, map_location=None) -> Dict[str, Any]:
         return torch.load(self._step_dir(step) / "state.pt",
                           map_location=map_location, weights_only=True)
+
+    def restore_partial(self, step: int, keys) -> Dict[str, Any]:
+        """Only ``keys`` of the saved state (e.g. ``params`` or
+        ``ema_params`` for sampling), on the host. The file is memory-mapped,
+        so the other entries, the optimizer moments among them, are never
+        read into memory."""
+        state = torch.load(self._step_dir(step) / "state.pt", map_location="cpu",
+                           mmap=True, weights_only=True)
+        return {k: state[k] for k in keys}

@@ -13,22 +13,26 @@ card), a group of tensors at a time to bound the temporaries:
   the LR), p -= lr(count) * u; with ``mu_dtype`` bf16 the first moment is
   stored in bf16 (optax computes ``b1 * mu`` in bf16, b1 included, before
   the f32 add, and so does this);
+* AdamW with ``nu_dtype`` (the JAX ``adamw_lp`` / ``scale_by_adam_lp``):
+  the moments are updated in f32 from their stored values, mu = b1 mu +
+  (1 - b1) g and nu = b2 nu + ((1 - b2) g) g, and stored with unbiased
+  stochastic rounding (:func:`stochastic_round`) in ``nu_dtype`` and, when
+  set, ``mu_dtype``; b1 stays f32 here;
 * Adam: the same without decay; SGD: optional momentum trace;
 * accumulation every k micro-steps: the running mean of the gradients
   (``acc + (g - acc) / (n + 1)``) is clipped and applied on the k-th step;
   the LR and Adam counts advance only on applied steps.
 
-``torch.optim.AdamW`` is not used: it has no bf16 first-moment storage and
-applies weight decay differently. Adafactor and the stochastic-rounding
-low-precision second moment (``scale_by_adam_lp``, ``nu_dtype``) are not
-ported yet.
+:class:`SetToZero` is ``optax.set_to_zero()``, the whole chain of a frozen
+denoiser. ``torch.optim.AdamW`` is not used: it has no bf16 moment storage
+and applies weight decay differently. Adafactor is not ported yet.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -90,6 +94,30 @@ def build_lr_schedule(base_lr: float, scheduler_cfg: Optional[LRSchedulerCfg]
 
 
 _MU_DTYPES = {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16}
+# The seed of the stochastic rounding's draws: step ``count`` and leaf ``i``
+# draw from SeedSequence([ROUNDING_SEED, count, i]), as the JAX keys are
+# fold_in(fold_in(PRNGKey(0x5EED), count), i).
+ROUNDING_SEED = 0x5EED
+
+
+def stochastic_round(x: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """Unbiased f32 -> bf16 rounding (the JAX ``stochastic_round``): add
+    ``noise``, uniform integers in [0, 2^16), to the 16 mantissa bits that
+    bf16 drops, then truncate them. On the int32 view of the bit pattern
+    the wrap-around add is the uint32 add, and -65536 is the mask
+    0xFFFF0000; a carry into the exponent is the round-up case."""
+    rounded = (x.view(torch.int32) + noise) & -65536
+    return rounded.view(torch.float32).to(torch.bfloat16)
+
+
+def rounding_noise(shape, device, count: int, leaf: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (mu, nu) rounding draws of parameter ``leaf`` at update
+    ``count``: int32 in [0, 2^16), from a generator seeded per (count,
+    leaf), so a chunking of the update draws the same values."""
+    seed = np.random.SeedSequence([ROUNDING_SEED, count, leaf]).generate_state(1)[0]
+    gen = torch.Generator(device).manual_seed(int(seed))
+    return tuple(torch.randint(0, 1 << 16, shape, generator=gen, dtype=torch.int32,
+                               device=device) for _ in range(2))
 # Elements per group of tensors that one round of foreach ops updates: the
 # update's f32 temporaries stay near 15 x 128 MB instead of 15 copies of
 # every parameter (0.93B parameters: 3.7 GB each).
@@ -117,18 +145,23 @@ class Optimizer:
     ``torch.save`` stores); ``apply(params, grads, state)`` updates the f32
     ``params`` and ``state`` and returns whether an update was applied (False
     on the accumulation micro-steps). ``grads`` may be bf16: each group is
-    cast to f32 as it is used."""
+    cast to f32 as it is used. With ``nu_dtype`` the moments are stored by
+    stochastic rounding; ``apply``'s ``noise`` (name -> (mu, nu) draws of
+    :func:`rounding_noise`'s kind) then replaces the seeded draws."""
 
     def __init__(self, name: str, lr_schedule: Callable[[int], float], *,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 0.0, mu_dtype: Optional[torch.dtype] = None,
-                 momentum: float = 0.0, clip: Optional[float] = None,
-                 every_k: int = 1):
+                 nu_dtype: Optional[torch.dtype] = None, momentum: float = 0.0,
+                 clip: Optional[float] = None, every_k: int = 1):
         if name not in ("AdamW", "Adam", "SGD"):
             raise ValueError(f"Unknown optimizer: {name}")
+        if nu_dtype is not None and name != "AdamW":
+            raise ValueError(f"{name} takes no nu_dtype")
         self.name, self.lr_schedule = name, lr_schedule
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay, self.mu_dtype, self.momentum = weight_decay, mu_dtype, momentum
+        self.nu_dtype = nu_dtype
         self.clip, self.every_k = clip, every_k
 
     def init(self, params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
@@ -138,7 +171,7 @@ class Optimizer:
         state: Dict[str, Any] = {"count": 0, "mini_step": 0}
         if self.name in ("AdamW", "Adam"):
             state["mu"] = zeros(self.mu_dtype)
-            state["nu"] = zeros()
+            state["nu"] = zeros(self.nu_dtype)
         elif self.momentum:
             state["trace"] = zeros()
         if self.every_k > 1:
@@ -146,7 +179,9 @@ class Optimizer:
         return state
 
     def apply(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
-              state: Dict[str, Any]) -> bool:
+              state: Dict[str, Any], noise: Optional[Dict[str, Tuple[torch.Tensor,
+                                                                     torch.Tensor]]] = None
+              ) -> bool:
         chunks = _chunks(params)
         if self.every_k > 1:
             n = state["mini_step"]
@@ -177,6 +212,8 @@ class Optimizer:
                     trace = [state["trace"][k] for k in names]
                     upd = torch._foreach_add(g, torch._foreach_mul(trace, self.momentum))
                     torch._foreach_copy_(trace, upd)
+            elif self.nu_dtype is not None:
+                upd = self._adam_lp(names, g, p, state, count + 1, noise)
             else:
                 upd = self._adam(g, p, [state["mu"][k] for k in names],
                                  [state["nu"][k] for k in names], count + 1)
@@ -205,6 +242,33 @@ class Optimizer:
         torch._foreach_copy_(nu, nu32)
         return upd
 
+    def _adam_lp(self, names: List[str], g, p, state, count: int, noise) -> List[torch.Tensor]:
+        """``scale_by_adam_lp`` then the decay: f32 arithmetic on the stored
+        moments, the moments stored by stochastic rounding. Leaf ``i`` is
+        the parameter's rank in sorted name order (the JAX tree's order for
+        a flat tree)."""
+        b1, b2 = self.b1, self.b2
+        mu = [state["mu"][k] for k in names]
+        nu = [state["nu"][k] for k in names]
+        mu32 = torch._foreach_add(torch._foreach_mul([m.float() for m in mu], b1),
+                                  torch._foreach_mul(g, 1 - b1))
+        nu32 = torch._foreach_add(torch._foreach_mul([n.float() for n in nu], b2),
+                                  torch._foreach_mul(torch._foreach_mul(g, 1 - b2), g))
+        bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
+        bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
+        denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu32, bc2)), self.eps)
+        upd = torch._foreach_div(torch._foreach_div(mu32, bc1), denom)
+        if self.weight_decay:
+            upd = torch._foreach_add(upd, torch._foreach_mul(p, self.weight_decay))
+        leaf = {k: i for i, k in enumerate(sorted(state["nu"]))}
+        for k, m, n, m32, n32 in zip(names, mu, nu, mu32, nu32):
+            draws = (noise[k] if noise is not None
+                     else rounding_noise(m32.shape, m32.device, count, leaf[k]))
+            for stored, exact, bits in ((m, m32, draws[0]), (n, n32, draws[1])):
+                stored.copy_(stochastic_round(exact, bits) if stored.dtype == torch.bfloat16
+                             else exact)
+        return upd
+
 
 def global_norm(tensors: List[torch.Tensor]) -> float:
     """sqrt(sum of squares) over every element of ``tensors``, in f32."""
@@ -215,24 +279,35 @@ def global_norm(tensors: List[torch.Tensor]) -> float:
 def build_optimizer(optimizer_cfg: OptimizerCfg, lr_schedule: Callable[[int], float],
                     gradient_clip_val: Optional[float] = None,
                     accumulate_grad_batches: int = 1) -> Optimizer:
-    """The JAX ``build_optimizer``'s chain for AdamW (with ``mu_dtype``),
-    Adam and SGD."""
+    """The JAX ``build_optimizer``'s chain for AdamW (with ``mu_dtype`` and,
+    by stochastic rounding, ``nu_dtype``), Adam and SGD."""
     kwargs = optimizer_cfg.kwargs or {}
     name = optimizer_cfg.name
-    if kwargs.get("nu_dtype"):
-        raise NotImplementedError("nu_dtype (stochastic-rounding second moment) is not ported")
     b1, b2 = kwargs.get("betas", (0.9, 0.999))
     common = dict(clip=gradient_clip_val, every_k=accumulate_grad_batches)
     if name == "AdamW":
         return Optimizer("AdamW", lr_schedule, b1=b1, b2=b2, eps=kwargs.get("eps", 1e-8),
                          weight_decay=kwargs.get("weight_decay", 0.01),
-                         mu_dtype=_MU_DTYPES[kwargs.get("mu_dtype")], **common)
+                         mu_dtype=_MU_DTYPES[kwargs.get("mu_dtype")],
+                         nu_dtype=_MU_DTYPES[kwargs.get("nu_dtype")], **common)
     if name == "Adam":
         return Optimizer("Adam", lr_schedule, b1=b1, b2=b2, eps=kwargs.get("eps", 1e-8),
                          **common)
     if name == "SGD":
         return Optimizer("SGD", lr_schedule, momentum=kwargs.get("momentum", 0.0), **common)
     raise ValueError(f"Unknown optimizer: {name}")
+
+
+class SetToZero:
+    """``optax.set_to_zero()``: the chain of a frozen denoiser
+    (``freeze.denoiser``). No clip, accumulation or moments; every step
+    applies a zero update, so the masters stay as they are."""
+
+    def init(self, params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        return {}
+
+    def apply(self, params, grads, state) -> bool:
+        return True
 
 
 @torch.no_grad()

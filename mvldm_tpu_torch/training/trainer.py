@@ -1,6 +1,6 @@
 """Train step and host loop (counterpart of
-``mvldm_tpu/training/trainer.py``), on one device; the mesh strategies and
-the validation hook are not ported yet.
+``mvldm_tpu/training/trainer.py``), on one device; the mesh strategies are
+not ported yet.
 
 Mixed precision, as the JAX package trains (f32 parameters, bf16
 compute): the UNet module runs in its own dtype, bf16 on the card, the same
@@ -14,15 +14,17 @@ into the module. The VAE is frozen.
 from __future__ import annotations
 
 import json
+import os
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Callable, Dict, Iterable, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn as nn
 
 from ..diffusion.engine import Batch, DiffusionEngine, TrainDraws
+from ..utils.profiling import start_trace, stop_trace
 from .checkpoint import CheckpointManager
 from .optim import Optimizer, ema_update, global_norm
 
@@ -110,22 +112,28 @@ def make_train_step(engine: DiffusionEngine, tx: Optimizer, num_context_views: i
 
 
 class Trainer:
-    """Host loop over an iterable of batches in the data loader's dict
-    format: ``{"context": {...}, "target": {...}}``, each with ``image``
-    (b, v, h, w, 3), ``extrinsics``, ``intrinsics`` and optionally
-    ``latent_moments``. Appends one JSON line per ``log_every`` steps to
-    ``<run_dir>/metrics.jsonl`` and checkpoints every ``checkpoint_every``
-    steps and at the last step."""
+    """Host loop (the JAX ``Trainer``): pulls batches from
+    ``data_module.train_dataloader()`` in the data loader's dict format
+    (``{"context": {...}, "target": {...}}``, each with ``image`` (b, v, h,
+    w, 3), ``extrinsics``, ``intrinsics`` and optionally
+    ``latent_moments``), appends one JSON line per ``log_every`` steps to
+    ``<run_dir>/metrics.jsonl``, checkpoints every ``checkpoint_every``
+    steps and at the last step, and calls ``val_hook(state, step)`` every
+    ``val_check_interval`` steps. With ``MVLDM_PROFILE_DIR`` set, steps
+    start + 10 to start + 13 are traced there."""
 
-    def __init__(self, engine: DiffusionEngine, tx: Optimizer, run_dir, *,
+    def __init__(self, engine: DiffusionEngine, tx: Optimizer, data_module, run_dir, *,
                  max_steps: int, num_context_views: int, checkpoint_every: int = 1000,
                  save_top_k: int = 1, log_every: int = 50, use_ema: bool = False,
-                 step_tracker: Any = None, task_steps: Optional[int] = None):
-        self.engine, self.tx = engine, tx
+                 step_tracker: Any = None, val_hook: Optional[Callable] = None,
+                 val_check_interval: Optional[int] = None,
+                 task_steps: Optional[int] = None):
+        self.engine, self.tx, self.data_module = engine, tx, data_module
         self.run_dir = Path(run_dir)
         self.max_steps, self.num_context_views = max_steps, num_context_views
         self.checkpoint_every, self.log_every = checkpoint_every, log_every
         self.use_ema, self.step_tracker = use_ema, step_tracker
+        self.val_hook, self.val_check_interval = val_hook, val_check_interval
         self.task_steps = task_steps
         self.ckpt = CheckpointManager(self.run_dir / "checkpoints", save_top_k)
         self.metrics_log = self.run_dir / "metrics.jsonl"
@@ -138,11 +146,15 @@ class Trainer:
                           step=0)
 
     def maybe_restore(self, state: TrainState) -> TrainState:
-        """Resume from the newest checkpoint, if any, into the module too."""
+        """Resume from the newest checkpoint, if any, into the module too.
+        ``state`` is dropped before the saved one is read, so a caller that
+        passes its only reference (``maybe_restore(init_state())``) holds
+        one state on the device, not two."""
         latest = self.ckpt.latest_step()
         if latest is None:
             return state
         print(f"Resuming from checkpoint at step {latest}")
+        del state
         state = TrainState(**self.ckpt.restore(latest, map_location=self.engine.device))
         load_params(self.engine.unet, state.params)
         return state
@@ -159,37 +171,61 @@ class Trainer:
         with open(self.metrics_log, "a") as f:
             f.write(json.dumps({"step": step, **{k: float(v) for k, v in metrics.items()}}) + "\n")
 
-    def fit(self, state: TrainState, batches: Iterable[Dict[str, Dict[str, Any]]],
-            seed: int = 0) -> TrainState:
+    def fit(self, state: TrainState, seed: int = 0) -> TrainState:
         """Train from ``state.step`` to ``max_steps`` (at most ``task_steps``
         more). Step ``s`` draws its randomness from a generator seeded with
         (seed, s), the JAX ``fold_in(rng, step)``, so a resumed run repeats
-        the draws of an unbroken one."""
+        the draws of an unbroken one. The train loader is infinite and
+        decodes in threads: it is closed, with a bounded wait, however the
+        loop ends."""
         start = state.step
         end = self.max_steps if self.task_steps is None else min(
             self.max_steps, start + self.task_steps)
         self.run_dir.mkdir(parents=True, exist_ok=True)
+        loader = self.data_module.train_dataloader()
+        try:
+            return self._fit_loop(state, seed, loader, start, end)
+        finally:
+            loader.close(timeout=60.0)
+
+    def _fit_loop(self, state: TrainState, seed: int, loader, start: int, end: int
+                  ) -> TrainState:
         dev = self.engine.device
         t0, window = time.perf_counter(), 0
-        for raw in batches:
-            step = state.step
-            if step >= end:
-                break
-            if self.step_tracker is not None:
-                self.step_tracker.set_step(step)
-            gen = torch.Generator(device=dev).manual_seed((seed << 32) + step)
-            state, metrics = self._train_step(state, self._batch(raw), generator=gen)
-            window += 1
-            new_step = step + 1
-            if new_step % self.log_every == 0 or new_step == end:
-                metrics = {k: float(v) for k, v in metrics.items()}  # syncs the device
-                dt = time.perf_counter() - t0
-                metrics["steps_per_sec"] = window / dt if dt > 0 else 0.0
-                self._log(new_step, metrics)
-                print(f"step {new_step}: loss={metrics['loss/diffusion']:.5f} "
-                      f"({metrics['steps_per_sec']:.2f} it/s)")
-                t0, window = time.perf_counter(), 0
-            if new_step % self.checkpoint_every == 0 or new_step == end:
-                self.ckpt.save(new_step, state.state_dict())
+        profile_dir = os.environ.get("MVLDM_PROFILE_DIR")
+        profile_window = (start + 10, start + 13)
+        prof = None
+        try:
+            for raw in loader:
+                step = state.step
+                if step >= end:
+                    break
+                if profile_dir and step == profile_window[0] and prof is None:
+                    prof = start_trace()
+                if prof is not None and step == profile_window[1]:
+                    out = stop_trace(prof, Path(profile_dir))
+                    prof = None
+                    print(f"[profile] wrote train-step trace to {out}")
+                if self.step_tracker is not None:
+                    self.step_tracker.set_step(step)
+                gen = torch.Generator(device=dev).manual_seed((seed << 32) + step)
+                state, metrics = self._train_step(state, self._batch(raw), generator=gen)
+                window += 1
+                new_step = step + 1
+                if new_step % self.log_every == 0 or new_step == end:
+                    metrics = {k: float(v) for k, v in metrics.items()}  # syncs the device
+                    dt = time.perf_counter() - t0
+                    metrics["steps_per_sec"] = window / dt if dt > 0 else 0.0
+                    self._log(new_step, metrics)
+                    print(f"step {new_step}: loss={metrics['loss/diffusion']:.5f} "
+                          f"({metrics['steps_per_sec']:.2f} it/s)")
+                    t0, window = time.perf_counter(), 0
+                if new_step % self.checkpoint_every == 0 or new_step == end:
+                    self.ckpt.save(new_step, state.state_dict())
+                if (self.val_hook is not None and self.val_check_interval
+                        and new_step % self.val_check_interval == 0):
+                    self.val_hook(state, new_step)
+        finally:
+            if prof is not None:
+                stop_trace(prof, Path(profile_dir))
         return state
-

@@ -108,13 +108,6 @@ def test_scene_id_by_index_and_by_hash(data_root, tmp_path, scene_id, scene, fra
     assert tree(tmp_path / "video") == expected_tree(scene, frames, context)
 
 
-def test_mode_train_and_val_are_refused(data_root, tmp_path):
-    for mode, item in (("train", "item 7"), ("val", "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
-            main_script.main(["+experiment=tiny", f"mode={mode}", f"dataset.root={data_root}",
-                              f"output_dir={tmp_path}"], device="cpu")
-
-
 @pytest.mark.parametrize("entry", [generate_mvldm.main, main_script.main])
 def test_without_a_card_the_clis_exit_nonzero(monkeypatch, tmp_path, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -1,9 +1,11 @@
-"""The forward-kernel launch counts that ``chip_smoke.py`` requires of its
-sampling runs, counted again on the CPU: the engine each run's config
-builds, on the meta device in bf16 (shapes only, routed as on the card),
-with the three forward wrappers stubbed by counters, runs the run's
-dispatch. A run's count is affine in the step count, so it is counted at 1
-and 2 steps and taken to the run's steps."""
+"""The kernel launch counts that ``chip_smoke.py`` requires of its
+sampling and training-CLI runs, counted again on the CPU: the engine each
+run's config builds, on the meta device in bf16 (shapes only, routed as on
+the card), with the kernel wrappers stubbed by counters, runs the run's
+work. A sampling count is affine in the step count, so it is counted at 1
+and 2 steps and taken to the run's steps. A training run is its steps'
+loss and backward at the config's batch plus its validation scenes, each a
+1 + 3-view ``engine.sample`` at the config's 70 steps."""
 
 import numpy as np
 import pytest
@@ -14,6 +16,8 @@ from mvldm_tpu_torch import builder, config
 from mvldm_tpu_torch.diffusion.video_sampling import SceneViews, VideoSampler
 from mvldm_tpu_torch.models import layers
 from mvldm_tpu_torch.ops import attention as attn
+from mvldm_tpu_torch.ops import fused_attn, fused_ff
+from mvldm_tpu_torch.training.trainer import batch_from_arrays
 
 NAMES = ("flash_attention", "fused_ln_self_attention", "fused_ln_geglu_ff")
 
@@ -78,3 +82,108 @@ def test_chip_smoke_launch_counts_are_the_plans(counters, run):
     plan = {k: one[k] + (steps - 1) * (two[k] - one[k]) for k in NAMES}
     want = chip_smoke.SCENE_LAUNCHES if run == "main_path" else chip_smoke.CLI_LAUNCHES[run]
     assert plan == want
+
+
+TRAIN_NAMES = NAMES + ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+
+@pytest.fixture
+def kernel_counters(monkeypatch):
+    """Every bf16 kernel wrapper stubbed by a counter below the autograd
+    functions, so that a backward reaches the backward kernels as on the
+    card (the fused blocks' backward recomputes through the flash
+    forward)."""
+    counts = dict.fromkeys(TRAIN_NAMES, 0)
+
+    def rows(q):
+        return torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+
+    def fwd(q, k, v, bias=None, scale=None, return_lse=False):
+        counts["flash_attention"] += 1
+        return (torch.empty_like(q), rows(q)) if return_lse else torch.empty_like(q)
+
+    def dq(q, k, v, bias, out, lse, g, scale=None):
+        counts["flash_attention_bwd_dq"] += 1
+        return torch.empty_like(q), rows(q)
+
+    def dkv(q, k, v, bias, lse, delta, g, scale=None, need_dbias=True):
+        counts["flash_attention_bwd_dkv"] += 1
+        db = (torch.empty(k.shape[:3], dtype=torch.float32, device=k.device)
+              if bias is not None and need_dbias else None)
+        return torch.empty_like(k), torch.empty_like(v), db
+
+    def block(name):
+        def launch(x, *args, **kwargs):
+            counts[name] += 1
+            return torch.empty_like(x)
+        return launch
+
+    monkeypatch.setattr(attn, "flash_attention", fwd)
+    monkeypatch.setattr(attn, "flash_attention_bwd_dq", dq)
+    monkeypatch.setattr(attn, "flash_attention_bwd_dkv", dkv)
+    monkeypatch.setattr(fused_attn, "_fused_attn_cuda", block("fused_ln_self_attention"))
+    monkeypatch.setattr(fused_ff, "_fused_ff_cuda", block("fused_ln_geglu_ff"))
+    return counts
+
+
+def meta_engine(overrides, steps=None):
+    cfg = config.load_typed_root_config(config.compose(
+        ["+experiment=baseline", *overrides]
+        + ([] if steps is None else [f"model.scheduler.num_inference_steps={steps}"])))
+    engine = builder.build_engine(cfg, "meta")
+    engine.vae.requires_grad_(False)
+    assert engine.dtype == torch.bfloat16
+    return cfg, engine
+
+
+def train_step_launches(counts, overrides) -> dict:
+    """One training step's loss and backward at the config's batch."""
+    cfg, engine = meta_engine(overrides)
+    b = cfg.data_loader.train.batch_size
+    views = {"context": cfg.dataset.view_sampler.num_context_views,
+             "target": cfg.dataset.view_sampler.num_target_views}
+    raw = {role: {"image": torch.empty((b, n, 256, 256, 3)),
+                  "extrinsics": torch.eye(4).repeat(b, n, 1, 1),
+                  "intrinsics": torch.eye(3).repeat(b, n, 1, 1)} for role, n in views.items()}
+    batch = batch_from_arrays(*(raw[r][k] for k in ("image", "extrinsics", "intrinsics")
+                                for r in ("context", "target")))
+    counts.update(dict.fromkeys(counts, 0))
+    loss, _ = engine.training_loss(batch, views["context"])
+    loss.backward()
+    return dict(counts)
+
+
+def val_scene_launches(counts, overrides) -> dict:
+    """One validation scene: ``engine.sample`` of 3 targets from one context
+    view, at the config's step count (affine in it: counted at 1 and 2)."""
+    cfg = config.load_typed_root_config(config.compose(["+experiment=baseline", *overrides]))
+    steps = cfg.model.scheduler.num_inference_steps
+    by_steps = []
+    for n in (1, 2):
+        _, engine = meta_engine(overrides, n)
+        counts.update(dict.fromkeys(counts, 0))
+        n_tgt = cfg.dataset.view_sampler.num_target_views
+        engine.sample(torch.empty((1, 1, 256, 256, 3)), torch.eye(4).repeat(1, 1 + n_tgt, 1, 1),
+                      torch.eye(3).repeat(1, 1 + n_tgt, 1, 1), num_target_views=n_tgt)
+        by_steps.append(dict(counts))
+    one, two = by_steps
+    return {k: one[k] + (steps - 1) * (two[k] - one[k]) for k in counts}
+
+
+# run: (config overrides, training steps, validation scenes)
+TRAIN_RUNS = {
+    "train": ([], 4, 2 * 2),                       # (f): hooks at steps 2 and 4, 2 scenes each
+    "train_resume": ([], 2, 1 * 2),                # (g): steps 5-6, a hook at step 6
+    "val": ([], 0, 2),                             # (h): one val batch of 2 scenes
+    "train_tpu_fast": (["+experiment=tpu_fast"], 4, 0),  # (i): remat, no hook by step 4
+}
+
+
+@pytest.mark.parametrize("run", list(TRAIN_RUNS))
+def test_chip_smoke_training_cli_launch_counts_are_the_plans(kernel_counters, run):
+    overrides, steps, scenes = TRAIN_RUNS[run]
+    step = train_step_launches(kernel_counters, overrides)
+    scene = val_scene_launches(kernel_counters, overrides)
+    plan = {k: steps * step[k] + scenes * scene[k] for k in TRAIN_NAMES}
+    assert plan == chip_smoke.TRAIN_CLI_LAUNCHES[run]
+    assert all(plan[k] for k in TRAIN_NAMES if steps)

@@ -395,6 +395,29 @@ def test_torn_tmp_dir_does_not_break_resume(tmp_path):
     assert mgr.restore(5)["x"].item() == 5
 
 
+class BatchList:
+    """A data module whose train loader yields the given batches; it
+    records whether each loader it made was closed."""
+
+    def __init__(self, batches):
+        self.batches, self.loaders = batches, []
+
+    def train_dataloader(self):
+        module = self
+
+        class Loader:
+            closed = False
+
+            def __iter__(self):
+                return iter(module.batches)
+
+            def close(self, timeout=None):
+                self.closed = True
+
+        self.loaders.append(Loader())
+        return self.loaders[-1]
+
+
 def test_trainer_fit_and_resume(tmp_path, checkpoint):  # noqa: F811
     """fit() logs, checkpoints and stops at task_steps; a new Trainer resumes
     from ``latest`` (module included) and ends where an unbroken run ends."""
@@ -406,13 +429,13 @@ def test_trainer_fit_and_resume(tmp_path, checkpoint):  # noqa: F811
         engine = port_train_engine(checkpoint[0])
         tx = build_optimizer(OptimizerCfg("AdamW", 1e-4, {"mu_dtype": "bfloat16"}),
                              build_lr_schedule(1e-4, None), gradient_clip_val=0.1)
-        trainer = Trainer(engine, tx, run_dir, max_steps=3, num_context_views=V_C,
-                          checkpoint_every=2, log_every=1, use_ema=True,
-                          task_steps=task_steps)
+        trainer = Trainer(engine, tx, BatchList([raw] * 5), run_dir, max_steps=3,
+                          num_context_views=V_C, checkpoint_every=2, log_every=1,
+                          use_ema=True, task_steps=task_steps)
         state = trainer.init_state()
         if resume:
             state = trainer.maybe_restore(state)
-        return trainer, trainer.fit(state, iter([raw] * 5), seed=4), engine
+        return trainer, trainer.fit(state, seed=4), engine
 
     trainer, state, _ = run(tmp_path / "a", 2, resume=False)
     assert state.step == 2 and trainer.ckpt.all_steps() == [2]
