@@ -112,8 +112,28 @@ Phases, each fatal on failure (non-zero exit, no final result line):
    directory, its weights read by ``restore_partial`` alone, into ``val/``;
    (i) ``+experiment=tpu_fast`` for 4 steps: remat, mu and nu stored in
    bf16, a peak below (f)'s. Each run: wall time, peak memory, launches
-   equal to its plan's (TRAIN_CLI_LAUNCHES) and no f32-route launch. It
-   runs last.
+   equal to its plan's (TRAIN_CLI_LAUNCHES) and no f32-route launch.
+13. cli_train_variants, on cli_train's synthetic train stage: (j)
+   ``precompute_latents`` (``python -m mvldm_tpu_torch.scripts.precompute_latents``)
+   in f32 with the port's seeded VAE, 2 scenes x TRAIN_FRAMES frames x 2
+   flips in launches of 32: the cache's layout, the f32 route's launches
+   against their plan (vae_encode_f32_plan) and no bf16 launch, four
+   frames against the host's f32 encode (PRECOMPUTE_REL_L2); (k)
+   ``+experiment=tpu_fast dataset.latent_cache=<(j)>``, 4 steps, whose plan
+   has no VAE-encoder launch; (l) ``optimizer.name=Adafactor``, 2 steps;
+   (m) ``trainer.remat_policy=dots``, 2 steps, then one step's loss and
+   backward at batch 6 under full remat, dots and no remat with the same
+   draws: dots's peak strictly between, its loss and gradient against full
+   remat's within TRAIN_LOSS_REL_BOUND and TRAIN_GRAD_REL_L2_BOUND. Each CLI
+   run: launches its plan's, finite losses, the saved optimizer state.
+14. eval: (n) ``generate_gt``, ``generate_gt_image_directory``,
+   ``compute_metrics`` (three forms) and ``compute_fid`` (three forms) on
+   the card over cli run (a)'s renders, with seeded synthetic LPIPS / DISTS
+   and Inception weights in the real layouts and ``--allow-init-vae``: the
+   JSON trees' keys, no bf16 launch, the f32 VAE encodes' launches against
+   their plan, and the metrics and FID features against the port's CPU
+   run on the same images (EVAL_PSNR_SSIM_REL, EVAL_FEATURE_REL). It runs
+   last.
 
 Every result is one JSON line. The last two lines are the card as
 ``nvidia-smi`` names it and ``{"ok": true, "device": {...}}``.
@@ -181,6 +201,9 @@ CLI_FRAMES = 24  # frames a synthetic scene of the cli phase holds
 # a validation scene (1 + 3 views, 70 DDIM steps) 1192 / 560 / 560.
 _TRAIN_STEP = (26, 8, 8, 25, 25)
 _TRAIN_STEP_REMAT = (43, 16, 16, 25, 25)
+# From the latent cache a step runs no VAE encode: its D = 512 flash launch
+# drops out (remat under tpu_fast).
+_TRAIN_STEP_REMAT_CACHED = (42, 16, 16, 25, 25)
 _VAL_SCENE = (1192, 560, 560, 0, 0)
 TRAIN_KERNELS = ("flash_attention", "fused_ln_self_attention", "fused_ln_geglu_ff",
                  "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
@@ -195,6 +218,11 @@ TRAIN_CLI_LAUNCHES = {
     "train_resume": _plan(2, _TRAIN_STEP, 2),     # (g): steps 5-6, a hook at step 6
     "val": _plan(0, _TRAIN_STEP, 2),              # (h): one val batch of 2 scenes
     "train_tpu_fast": _plan(4, _TRAIN_STEP_REMAT, 0),  # (i): remat, no hook by step 4
+    "train_latent_cache": _plan(4, _TRAIN_STEP_REMAT_CACHED, 0),  # (k): tpu_fast, the cache
+    "train_adafactor": _plan(2, _TRAIN_STEP, 0),  # (l): the kernels of any baseline step
+    # (m): "dots" keeps the 2-D products; the hand kernels launch outside the
+    # dispatcher, so their outputs are recomputed as under full remat.
+    "train_remat_dots": _plan(2, _TRAIN_STEP_REMAT, 0),
 }
 # Frames of a synthetic scene of the cli_train phase: the baseline's bounded
 # sampler places 50 to 180 frames between the context views.
@@ -203,6 +231,16 @@ TRAIN_FRAMES = 181
 DDPM_STEP_REL_BOUND = 1e-6
 TRAIN_LOSS_REL_BOUND = 3e-2
 TRAIN_GRAD_REL_L2_BOUND = 1e-1
+# The evaluation metrics on the card (f32, TF32 off) against the port's CPU
+# run on the same images: PSNR and SSIM are sums of squares, the perceptual
+# distances and the FID features deep f32 networks (~1e-6 seen in the CPU
+# tests against JAX).
+EVAL_PSNR_SSIM_REL = 1e-4
+# The cache's float16 moments from the card's f32 encode against the host's
+# f32 encode: float16 storage alone is ~2.8e-4 relative (rms of a rounding
+# to 11 bits); a wrong term reads O(1).
+PRECOMPUTE_REL_L2 = 1e-3
+EVAL_FEATURE_REL = 1e-3
 N_TARGET = 16
 TRAIN_BATCH = 2
 TRAIN_STEPS = 5
@@ -1610,6 +1648,447 @@ def cli_train_checks(name: str, out, keys: dict, partial_restores: list) -> dict
     return {"moment_dtypes": dtypes, "remat": remat, "updates": s4["opt_state"]["count"]}
 
 
+# ------------------------------------------------- training variants, eval
+
+def vae_encode_f32_plan(batches) -> dict:
+    """f32-route launches of VAE encodes at 256 px, one call a batch size in
+    ``batches``: the mid block's one-head D = 512 attention over 1024 tokens
+    goes past the flash kernel (``attention_route_f32``): for each chunk of
+    heads the route's chunking takes, two GEMM-tile launches (S, P V) and a
+    row pass."""
+    from mvldm_tpu_torch.ops.f32_route import attention_chunks
+
+    plan = {"flash_attention_f32": 0, "flash_attention_bwd_f32": 0,
+            "fused_ln_self_attention_f32": 0, "fused_ln_geglu_ff_f32": 0,
+            "gemm_f32": 0, "attention_rows_f32": 0}
+    for b in batches:
+        n = len(attention_chunks(b, 1024, 1024))
+        plan["flash_attention_f32"] += 1
+        plan["gemm_f32"] += 2 * n
+        plan["attention_rows_f32"] += n
+    return plan
+
+
+def cached_moments_error(got, want) -> dict:
+    """The cache's float16 moments ``got`` against the host's f32 encode
+    ``want``: relative L2, and the largest difference in float16 steps of
+    the value (the step floored at that of 1/64 of the rms)."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    rms = np.sqrt(np.mean(want ** 2))
+    step = np.spacing(np.maximum(np.abs(want), rms / 64).astype(np.float16)).astype(np.float32)
+    return {"rel_l2": float(np.linalg.norm(got - want) / np.linalg.norm(want)),
+            "max_f16_steps": float(np.max(np.abs(got - want) / step))}
+
+
+def run_counted(kernels, f32_kernels, fn, *args, **kwargs) -> dict:
+    """``fn(*args, **kwargs)`` with every launch count set to 0 before it:
+    its wall time, peak device memory, and the counts after it."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels + f32_kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return {"wall_s": time.perf_counter() - t0,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": _counts(kernels), "f32_launches": _counts(f32_kernels)}
+
+
+def precompute_phase(card: str, data, cache, kernels, f32_kernels) -> dict:
+    """(j) ``precompute_latents`` in f32 (TF32 off, the f32 route) with the
+    port's seeded VAE on cli_train's synthetic train stage: 2 scenes of
+    TRAIN_FRAMES frames, both flips, in launches of 32 frames. The cache's
+    layout, its f32-route launches against their plan (no bf16 launch),
+    and two frames of each flip against the same f32 encode on the host
+    (relative L2 within PRECOMPUTE_REL_L2)."""
+    from mvldm_tpu_torch.data.latent_cache import LatentCacheReader
+    from mvldm_tpu_torch.scripts import precompute_latents
+
+    argv = [f"dataset.root={data}", f"out={cache}", "allow_init_vae=true"]
+    r = run_counted(kernels, f32_kernels, precompute_latents.main, argv)
+    per_scene = -(-TRAIN_FRAMES // 32)
+    plan = vae_encode_f32_plan([32] * (2 * 2 * per_scene))
+    meta = json.loads((cache / "train" / "meta.json").read_text())
+    chunk = np.load(cache / "train" / "000000.npz")
+    shapes = {k: list(chunk[k].shape) for k in chunk.files}
+    if meta != {"image_shape": [256, 256], "latent_channels": 4, "n_flips": 2,
+                "vae_fingerprint": "random-init(seed=0, mvldm_tpu_torch) dtype:float32"} \
+            or shapes != {f"scenetrain{s:04d}": [TRAIN_FRAMES, 2, 32, 32, 8] for s in range(2)} \
+            or not all(np.isfinite(chunk[k]).all() and chunk[k].dtype == np.float16
+                       for k in chunk.files):
+        fail(f"precompute: meta {meta}, arrays {shapes}")
+
+    # The host's f32 encode of frames 0 and 180 of the first scene, both
+    # flips, through the same pixels (the crop shim of the dataset's path).
+    from mvldm_tpu_torch.data.chunk_reader import convert_poses, decode_jpeg_bytes, load_chunk
+    from mvldm_tpu_torch.data.shims import rescale_and_crop
+
+    cfg = precompute_latents.load_precompute_cfg(argv)
+    vae = precompute_latents.build_vae(cfg, "cpu", torch.float32)
+    example = load_chunk(data / "train" / "000000.torch")[0]
+    idx = [0, TRAIN_FRAMES - 1]
+    _, intr = convert_poses(example["cameras"])
+    pixels, _ = rescale_and_crop(np.stack([decode_jpeg_bytes(example["images"][i]) for i in idx]),
+                                 intr[idx], (256, 256))
+    reader = LatentCacheReader(cache, "train", image_shape=(256, 256))
+    errors = {}
+    for flip in (False, True):
+        x = torch.from_numpy(pixels[:, :, ::-1].copy() if flip else pixels) * 2.0 - 1.0
+        with torch.no_grad():
+            dist = vae.encode(x)
+        want = torch.cat([dist.mean, dist.logvar], -1).numpy()
+        errors[f"flip_{flip}"] = cached_moments_error(
+            reader.lookup("000000", example["key"], np.array(idx), flip), want)
+    emit(phase="precompute_latents", run="j", argv=" ".join(argv),
+         what="precompute_latents.main on the card: the port's seeded SD2.1 VAE in f32 (TF32 "
+         "off), 2 scenes x 181 frames x 2 flips = 724 encodes in launches of 32, wall time "
+         "of the call (JPEG decode, LANCZOS crop, encode, npz write)",
+         encodes=2 * 2 * TRAIN_FRAMES, **r, expected_f32_launches=plan, meta=meta,
+         card_vs_host=errors, bound_rel_l2=PRECOMPUTE_REL_L2, card=card)
+    if r["f32_launches"] != plan or any(r["launches"].values()):
+        fail(f"precompute: f32 launches {r['f32_launches']} (plan {plan}), bf16 {r['launches']}")
+    if not all(e["rel_l2"] <= PRECOMPUTE_REL_L2 for e in errors.values()):
+        fail(f"precompute: the card's moments against the host's: {errors}")
+    return r["f32_launches"]
+
+
+def saved_opt_checks(run_dir, step: int) -> dict:
+    """The saved state of ``step``: its update count, the share of masters
+    moved off the bf16 init, and each optimizer tree's dtypes."""
+    s = saved_state(run_dir, step)
+    return {"step": s["step"], "updates": s["opt_state"]["count"],
+            "masters_off_init_share": off_bf16_share(s["params"]),
+            "opt_state": {k: sorted({str(t.dtype) for t in v.values()})
+                          for k, v in s["opt_state"].items() if isinstance(v, dict)}}
+
+
+def train_variant_runs(card: str, data, cache, runs_dir, kernels, f32_kernels) -> dict:
+    """(k) ``+experiment=baseline +experiment=tpu_fast`` from the latent
+    cache of (j), 4 steps at batch 6; (l) ``optimizer.name=Adafactor``, 2
+    steps (one update: accumulation 2); (m) ``trainer.remat=true
+    trainer.remat_policy=dots``, 2 steps. Each run's launches its plan's
+    (TRAIN_CLI_LAUNCHES), no f32-route launch, finite losses, the saved
+    state's optimizer and moved masters."""
+    import shutil
+
+    from mvldm_tpu_torch.scripts import main as main_script
+
+    common = ["+experiment=baseline", "mode=train", f"dataset.root={data}"]
+    runs = {
+        "train_latent_cache": ["+experiment=tpu_fast", "trainer.max_steps=4",
+                               f"dataset.latent_cache={cache}"],
+        "train_adafactor": ["optimizer.name=Adafactor", "trainer.max_steps=2"],
+        "train_remat_dots": ["trainer.remat=true", "trainer.remat_policy=dots",
+                             "trainer.max_steps=2"],
+    }
+    by_run = {}
+    for name, extra in runs.items():
+        out = runs_dir / name
+        argv = common + extra + [f"output_dir={out}"]
+        r = run_counted(kernels, f32_kernels, main_script.main, argv)
+        log = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+        losses = [x["loss/diffusion"] for x in log]
+        steps = 4 if name == "train_latent_cache" else 2
+        state = saved_opt_checks(out, steps)
+        emit(phase="cli_train_variants", run=name, argv=" ".join(argv),
+             what="scripts.main.main on the card at batch 6, wall time of the call (engine "
+             "build, data, steps, the final checkpoint)", **r,
+             expected_launches=TRAIN_CLI_LAUNCHES[name], losses=losses,
+             steps_per_s=log[-1]["steps_per_sec"], saved=state, card=card)
+        shutil.rmtree(out)
+        if r["launches"] != TRAIN_CLI_LAUNCHES[name] or any(r["f32_launches"].values()):
+            fail(f"{name}: launched {r['launches']} (plan {TRAIN_CLI_LAUNCHES[name]}), "
+                 f"f32 {r['f32_launches']}")
+        if not losses or not all(np.isfinite(x) for x in losses):
+            fail(f"{name}: losses {losses}")
+        f32, bf16 = ["torch.float32"], ["torch.bfloat16"]
+        want = {"train_latent_cache": {"acc": f32, "mu": bf16, "nu": bf16},
+                "train_adafactor": {"acc": f32, "v": f32, "v_col": f32, "v_row": f32},
+                "train_remat_dots": {"acc": f32, "mu": f32, "nu": f32}}[name]
+        if state["opt_state"] != want or not state["masters_off_init_share"] > 0 \
+                or state["updates"] != steps // 2:  # accumulation 2
+            fail(f"{name}: saved state {state}")
+        by_run[name] = r["launches"]
+    return by_run
+
+
+def remat_policy_compare(card: str) -> dict:
+    """(m) beside full remat and no remat: one training step's loss and
+    backward at batch 6 (2 + 4 views) with the same draws under each
+    policy; the peak device memory above what was held before it; loss and
+    UNet gradient of "dots" and of no remat against full remat's."""
+    from mvldm_tpu_torch.builder import build_flagship_train, make_train_batch
+
+    engine = build_flagship_train("cuda")
+    batch = make_train_batch(6)
+    named = [(n, p) for n, p in engine.unet.named_parameters() if p.requires_grad]
+    out = {}
+    for name, remat, policy in (("full", True, None), ("dots", True, "dots"),
+                                ("none", False, None)):
+        engine.unet.remat, engine.unet.remat_policy = remat, policy
+        for _, p in named:
+            p.grad = None
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, _ = engine.training_loss(batch, 2, generator=torch.Generator("cuda").manual_seed(9))
+        loss.backward()
+        torch.cuda.synchronize()
+        rec = {"s": time.perf_counter() - t0,
+               "peak_above_held_gb": (torch.cuda.max_memory_allocated() - held) / 2 ** 30,
+               "loss": float(loss.detach())}
+        grad = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).float().flatten()
+                          for _, p in named])
+        if name == "full":
+            ref_loss, ref_grad = rec["loss"], grad
+        else:
+            rec["loss_rel_vs_full"] = abs(rec["loss"] - ref_loss) / abs(ref_loss)
+            rec["grad_rel_l2_vs_full"] = float((grad - ref_grad).norm() / ref_grad.norm())
+        del grad
+        out[name] = rec
+    del engine, ref_grad
+    for _, p in named:
+        p.grad = None
+    torch.cuda.empty_cache()
+    emit(phase="remat_policy", what="one training step's loss and backward at batch 6 "
+         "(2 ctx + 3 tgt views, 256 px) on the seeded flagship, same draws, under full remat, "
+         "remat_policy=dots and no remat: seconds, peak memory above the memory held before "
+         "it, loss and UNet gradient against full remat's", **out,
+         bounds={"loss_rel": TRAIN_LOSS_REL_BOUND, "grad_rel_l2": TRAIN_GRAD_REL_L2_BOUND},
+         card=card)
+    peaks = {k: v["peak_above_held_gb"] for k, v in out.items()}
+    if not peaks["full"] < peaks["dots"] < peaks["none"]:
+        fail(f"remat_policy: peaks {peaks} not full < dots < none")
+    for name in ("dots", "none"):
+        if not (out[name]["loss_rel_vs_full"] <= TRAIN_LOSS_REL_BOUND
+                and out[name]["grad_rel_l2_vs_full"] <= TRAIN_GRAD_REL_L2_BOUND):
+            fail(f"remat_policy {name}: {out[name]}")
+    return out
+
+
+def cli_variants_phase(card: str, kernels, f32_kernels):
+    """(j)-(m) on cli_train's synthetic stage: see :func:`precompute_phase`,
+    :func:`train_variant_runs` and :func:`remat_policy_compare`."""
+    import shutil
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent / "build" / "cli_train_smoke"
+    shutil.rmtree(root / "runs", ignore_errors=True)  # cli_train's checkpoints
+    cache = root / "latents"
+    shutil.rmtree(cache, ignore_errors=True)
+    f32_launches = precompute_phase(card, root / "data", cache, kernels, f32_kernels)
+    by_run = train_variant_runs(card, root / "data", cache, root / "runs", kernels, f32_kernels)
+    remat_policy_compare(card)
+    return by_run, f32_launches
+
+
+def write_metric_weights(root) -> tuple:
+    """Seeded synthetic weights in the real layouts: ``lpips_vgg.npz`` (VGG16
+    HWIO kernels He-scaled so the signal survives 13 layers, the LPIPS heads,
+    DISTS alpha / beta) and ``inception_fid.npz`` (the FID InceptionV3
+    state dict census, He-scaled convs, BN statistics near identity)."""
+    from mvldm_tpu_torch.evaluation.inception import expected_state_keys
+    from mvldm_tpu_torch.evaluation.metrics import VGG_LAYERS
+
+    rng = np.random.default_rng(0)
+    vgg, cin = {}, 3
+    for block, (ch, n_convs) in enumerate(VGG_LAYERS):
+        for c in range(n_convs):
+            name = f"conv{block + 1}_{c + 1}"
+            vgg[f"{name}_kernel"] = rng.normal(0, np.sqrt(2 / (9 * cin)),
+                                               (3, 3, cin, ch)).astype(np.float32)
+            vgg[f"{name}_bias"] = (0.01 * rng.normal(size=ch)).astype(np.float32)
+            cin = ch
+    for i, ch in enumerate((64, 128, 256, 512, 512)):
+        vgg[f"lin{i}"] = np.abs(rng.normal(size=ch)).astype(np.float32)
+    n = 3 + 64 + 128 + 256 + 512 + 512
+    vgg["dists_alpha"] = np.abs(rng.normal(size=n)).astype(np.float32)
+    vgg["dists_beta"] = np.abs(rng.normal(size=n)).astype(np.float32)
+    inc = {}
+    for key, shape in expected_state_keys().items():
+        if key.endswith("conv.weight"):
+            inc[key] = rng.normal(0, np.sqrt(2 / np.prod(shape[1:])), shape).astype(np.float32)
+        elif key.endswith("bn.weight"):
+            inc[key] = (1 + 0.1 * rng.normal(size=shape)).astype(np.float32)
+        elif key.endswith("bn.bias"):
+            inc[key] = (0.05 * rng.normal(size=shape)).astype(np.float32)
+        elif key.endswith("running_mean"):
+            inc[key] = (0.01 * rng.normal(size=shape)).astype(np.float32)
+        else:
+            inc[key] = (np.abs(1 + 0.1 * rng.normal(size=shape)) + 0.1).astype(np.float32)
+    np.savez(root / "lpips_vgg.npz", **vgg)
+    np.savez(root / "inception_fid.npz", **inc)
+    return root / "lpips_vgg.npz", root / "inception_fid.npz"
+
+
+def _rel(got, want) -> float:
+    return abs(got - want) / max(abs(want), 1e-12)
+
+
+def _rel_l2(got, want) -> float:
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def eval_phase(card: str, kernels, f32_kernels) -> dict:
+    """(n) The evaluation CLIs on the card over cli run (a)'s output:
+    ``generate_gt`` and ``generate_gt_image_directory`` on the same test
+    stage; ``compute_metrics`` (directory form with LPIPS, DISTS and
+    Inception weights; with the VAE-feature fallback; Hydra over the test
+    datamodule with the VGG FID) and ``compute_fid`` (Inception; VGG
+    through Hydra; the VAE fallback), on seeded synthetic weights in the
+    real layouts and ``--allow-init-vae``. Each JSON tree's keys; the
+    metrics against the port's CPU run on the same images (PSNR, SSIM
+    within EVAL_PSNR_SSIM_REL, the rest and the FID features within
+    EVAL_FEATURE_REL); the f32 VAE encodes through the f32 route (launches
+    against their plan), no bf16 launch anywhere."""
+    import shutil
+    from pathlib import Path
+
+    from mvldm_tpu_torch.evaluation.fid import (
+        resolve_vae_params,
+        vae_feature_extractor,
+        vgg_feature_extractor,
+    )
+    from mvldm_tpu_torch.evaluation.inception import inception_feature_extractor
+    from mvldm_tpu_torch.evaluation.metric_computer import (
+        EvaluationCfg,
+        MethodCfg,
+        MetricComputer,
+    )
+    from mvldm_tpu_torch.scripts import (
+        compute_fid,
+        compute_metrics,
+        generate_gt,
+        generate_gt_image_directory,
+    )
+    from mvldm_tpu_torch.utils.image_io import load_image
+
+    here = Path(__file__).resolve().parent / "build"
+    data, video = here / "cli_smoke" / "data", here / "cli_smoke" / "runs" / "anchored" / "video"
+    root = here / "eval_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    test_args = ["+experiment=baseline", f"dataset.root={data}", "trainer.limit_test_batches=2",
+                 "dataset.view_sampler.max_distance_between_context_views=23",
+                 "test.limit_frames=8"]
+    rec = {}
+    rec["generate_gt"] = run_counted(kernels, f32_kernels, generate_gt.main,
+                                     test_args + [f"output_dir={root / 'gt'}"])
+    rec["generate_gt_image_directory"] = run_counted(
+        kernels, f32_kernels, generate_gt_image_directory.main,
+        test_args + [f"output_dir={root / 'gt_images'}"])
+    scenes = sorted(p.name for p in video.iterdir() if p.is_dir())
+    gt_names = {s: sorted(p.name for p in (root / "gt" / s).glob("*.png")) for s in scenes}
+    color = {s: sorted(p.name for p in (video / s / "color").glob("*.png")) for s in scenes}
+    flat = sorted(p.name for p in (root / "gt_images").glob("*.png"))
+    if gt_names != color or flat != sorted(f"{s}_{n}" for s in scenes for n in gt_names[s]):
+        fail(f"eval: GT {gt_names} / {flat}, renders {color}")
+    index = root / "eval_index.json"
+    index.write_text(json.dumps({s: {"context": [0, CLI_FRAMES - 1],
+                                     "target": [int(n[:-4]) for n in gt_names[s]]}
+                                 for s in scenes}))
+    w_vgg, w_inc = write_metric_weights(root)
+    absent = root / "absent.npz"
+    method = f"a={video}"
+    hydra = ["+evaluation=re10k_video", f"dataset.root={data}",
+             f"dataset.view_sampler.index_path={index}",
+             f"evaluation.methods=[{{name: a, key: a, path: {video}}}]",
+             "limit_test_batches=2", f"fid_gt_dir={root / 'gt_images'}",
+             f"lpips_weights={w_vgg}", f"inception_weights={absent}"]
+    runs = {
+        "compute_metrics": (compute_metrics.main, [
+            "--gt-dir", str(root / "gt"), "--method", method, "--output",
+            str(root / "metrics.json"), "--lpips-weights", str(w_vgg),
+            "--inception-weights", str(w_inc)], None),
+        "compute_metrics_vaefeat": (compute_metrics.main, [
+            "--gt-dir", str(root / "gt"), "--method", method, "--output",
+            str(root / "metrics_vaefeat.json"), "--lpips-weights", str(absent),
+            "--allow-init-vae"], [8] * 4),  # a scene's 8 targets and 8 renders, 2 scenes
+        "compute_metrics_hydra": (compute_metrics.main, hydra + [
+            f"output_metrics_path={root / 'hydra_metrics.json'}",
+            f"per_scene_metrics_path={root / 'hydra_per_scene.json'}"], None),
+        "compute_fid": (compute_fid.main, [
+            "--dir-a", str(video), "--dir-b", str(root / "gt_images"), "--output",
+            str(root / "fid.json"), "--inception-weights", str(w_inc)], None),
+        "compute_fid_hydra": (compute_fid.main, hydra + [
+            f"output_fid_path={root / 'hydra_fid.json'}"], None),
+        "compute_fid_vaefeat": (compute_fid.main, [
+            "--dir-a", str(video), "--dir-b", str(root / "gt_images"), "--output",
+            str(root / "fid_vaefeat.json"), "--lpips-weights", str(absent),
+            "--inception-weights", str(absent), "--allow-init-vae"], [16, 4, 16]),
+    }
+    f32_total = dict.fromkeys((k.__name__ for k in f32_kernels), 0)
+    for name, (fn, argv, encodes) in runs.items():
+        r = run_counted(kernels, f32_kernels, fn, argv)
+        plan = vae_encode_f32_plan(encodes or [])
+        r["expected_f32_launches"] = plan
+        rec[name] = r
+        if any(r["launches"].values()) or r["f32_launches"] != plan:
+            fail(f"eval {name}: bf16 {r['launches']}, f32 {r['f32_launches']} (plan {plan})")
+        for k, v in r["f32_launches"].items():
+            f32_total[k] += v
+    out = {k: json.loads((root / f).read_text()) for k, f in (
+        ("metrics", "metrics.json"), ("metrics_vaefeat", "metrics_vaefeat.json"),
+        ("hydra_metrics", "hydra_metrics.json"), ("hydra_per_scene", "hydra_per_scene.json"),
+        ("fid", "fid.json"), ("hydra_fid", "hydra_fid.json"),
+        ("fid_vaefeat", "fid_vaefeat.json"))}
+    keys = {k: sorted(v["a"]) if "a" in v else sorted(v) for k, v in out.items()}
+    want_keys = {
+        "metrics": ["dists", "lpips", "num_scenes", "psnr", "ssim"],
+        "metrics_vaefeat": ["lpips_vaefeat_randominit", "num_scenes", "psnr", "ssim"],
+        "hydra_metrics": ["dists", "fid_vgg", "lpips", "num_scenes", "psnr", "ssim"],
+        "hydra_per_scene": ["dists", "fid_vgg", "lpips", "psnr", "ssim"],
+        "fid": ["extractor", "fid", "kid", "num_a", "num_b"],
+        "hydra_fid": ["fid_vgg_a", "kid_vgg_a"],
+        "fid_vaefeat": ["extractor", "fid", "kid", "num_a", "num_b"],
+    }
+    if keys != want_keys or sorted(out["hydra_per_scene"]["psnr"]) != scenes \
+            or out["fid"]["extractor"] != "inception" or out["metrics"]["a"]["num_scenes"] != 2:
+        fail(f"eval: JSON keys {keys}")
+
+    # The port's CPU run on the same images.
+    t0 = time.perf_counter()
+    cfg = EvaluationCfg(methods=[MethodCfg("a", "a", video)])
+    cpu = MetricComputer(cfg, root / "gt", w_vgg, inception_weights=w_inc).compute()["a"]
+    vae_cpu, _ = resolve_vae_params(allow_init_vae=True)
+    cpu_vae = MetricComputer(cfg, root / "gt", absent, vae=vae_cpu,
+                             vae_feature_key="vaefeat_randominit").compute()["a"]
+    gts = np.stack([load_image(p) for p in sorted((root / "gt_images").glob("*.png"))])
+    vae_card, _ = resolve_vae_params(allow_init_vae=True, device="cuda")
+    features = {}
+    for name, card_fn, cpu_fn in (
+            ("inception", inception_feature_extractor(w_inc, "cuda"),
+             inception_feature_extractor(w_inc)),
+            ("vgg", vgg_feature_extractor(w_vgg, "cuda"), vgg_feature_extractor(w_vgg)),
+            ("vaefeat", vae_feature_extractor(vae_card), vae_feature_extractor(vae_cpu))):
+        features[name] = _rel_l2(card_fn(gts), cpu_fn(gts))
+    cpu_s = time.perf_counter() - t0
+    card_metrics = {**out["metrics"]["a"], **out["metrics_vaefeat"]["a"]}
+    host = {**cpu, **cpu_vae}
+    errs = {k: _rel(card_metrics[k], host[k]) for k in
+            ("psnr", "ssim", "lpips", "dists", "lpips_vaefeat_randominit")}
+    emit(phase="eval", what="the evaluation CLIs on the card over cli run (a)'s 2 x 8 frames "
+         "(256 px) against generate_gt's trees, seeded synthetic LPIPS/DISTS VGG and "
+         "Inception weights in the real layouts, the port's seed-0 VAE (--allow-init-vae, "
+         "f32, TF32 off); wall time of each call", runs=rec, results=out,
+         card_vs_cpu_rel=errs, feature_rel_l2_card_vs_cpu=features, cpu_check_s=cpu_s,
+         scipy=__import__("scipy").__version__,
+         bounds={"psnr_ssim_rel": EVAL_PSNR_SSIM_REL, "feature_rel": EVAL_FEATURE_REL},
+         card=card)
+    if not (errs["psnr"] <= EVAL_PSNR_SSIM_REL and errs["ssim"] <= EVAL_PSNR_SSIM_REL
+            and all(errs[k] <= EVAL_FEATURE_REL for k in ("lpips", "dists",
+                                                          "lpips_vaefeat_randominit"))
+            and all(v <= EVAL_FEATURE_REL for v in features.values())):
+        fail(f"eval: card against host {errs}, features {features}")
+    if not all(np.isfinite(v) for d in out.values() for v in d.values() if isinstance(v, float)):
+        fail(f"eval: non-finite results {out}")
+    return f32_total
+
+
 def train_profile_phase(card: str, state, step, batch, gen) -> None:
     from torch.profiler import ProfilerActivity, profile
 
@@ -1721,6 +2200,8 @@ def main() -> int:
     del engine, state, step, batch, train_gen
     torch.cuda.empty_cache()
     cli_train_launches = cli_train_phase(card, forward + backward, F32_KERNELS)
+    variant_launches, precompute_f32 = cli_variants_phase(card, forward + backward, F32_KERNELS)
+    eval_f32 = eval_phase(card, forward + backward, F32_KERNELS)
 
     f32_meta = {
         "flash_attention_f32": "mvldm_tpu/ops/attention.py:76",
@@ -1747,7 +2228,13 @@ def main() -> int:
     def bf16_paths(name: str) -> dict:
         return {"sampling": sampling_launches.get(name, 0), "training": train_launches[name],
                 **{f"cli_{run}": counts.get(name, 0) for run, counts in cli_launches.items()},
-                **{f"cli_{run}": counts[name] for run, counts in cli_train_launches.items()}}
+                **{f"cli_{run}": counts[name] for run, counts in cli_train_launches.items()},
+                **{f"cli_{run}": counts[name] for run, counts in variant_launches.items()}}
+
+    def f32_paths(name: str) -> dict:
+        return {"f32_forward": f32_forward_launches[name],
+                "f32_train_step": f32_step_launches[name],
+                "precompute_latents": precompute_f32[name], "eval": eval_f32[name]}
 
     emit(kernels=[
         dict(name=name, route="cuda", source=meta[name][0], replaces=meta[name][1],
@@ -1761,9 +2248,7 @@ def main() -> int:
              source="mvldm_tpu_torch/csrc/f32_route.cu" + (
                  " (+ f32_gemm_tile.cuh)" if name != "attention_rows_f32" else ""),
              replaces=f32_meta[name],
-             launches=f32_forward_launches[name] + f32_step_launches[name],
-             launches_by_path={"f32_forward": f32_forward_launches[name],
-                               "f32_train_step": f32_step_launches[name]},
+             launches=sum(f32_paths(name).values()), launches_by_path=f32_paths(name),
              max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
              bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
              timed_shape=r["shape"])

@@ -44,11 +44,13 @@ class MVLDM(nn.Module):
     """Holder with the reference Lightning checkpoint's module tree:
     ``denoiser`` (UNet + cross-view blocks) and ``autoencoder``."""
 
-    def __init__(self, model_cfg: ModelCfg):
+    def __init__(self, model_cfg: ModelCfg, remat: bool = False,
+                 remat_policy: Optional[str] = None):
         super().__init__()
         self.denoiser = MultiViewUNet(model_cfg.denoiser,
                                       in_channels=unet_in_channels(model_cfg),
-                                      out_channels=4)
+                                      out_channels=4, remat=remat,
+                                      remat_policy=remat_policy)
         self.autoencoder = AutoencoderKL(model_cfg.autoencoder.kwargs)
 
 
@@ -99,15 +101,13 @@ def build_engine(cfg, device="cuda", dtype: Optional[torch.dtype] = None
     shapes only."""
     dtype = dtype or resolve_dtype(cfg.trainer.precision)
     with torch.device("meta"):
-        model = MVLDM(cfg.model)
+        model = MVLDM(cfg.model, cfg.trainer.remat, cfg.trainer.remat_policy)
     if torch.device(device).type != "meta":
         model = model.to_empty(device=device)
         init_params(model, cfg.seed or 0)
     model = model.to(dtype).eval()
-    engine = DiffusionEngine(cfg.model, model.denoiser, model.autoencoder,
-                             get_scheduler(cfg.model.scheduler))
-    engine.unet.remat = cfg.trainer.remat
-    return engine
+    return DiffusionEngine(cfg.model, model.denoiser, model.autoencoder,
+                           get_scheduler(cfg.model.scheduler))
 
 
 # Up-block SD attentions of the reference checkpoint: the live model skips
@@ -124,11 +124,20 @@ def load_pretrained(cfg, engine: DiffusionEngine) -> None:
     load = cfg.checkpointing.load
     if not (load and str(load).endswith(".ckpt")):
         return
+    load_reference_ckpt(load, denoiser=engine.unet, autoencoder=engine.vae)
+
+
+def load_reference_ckpt(load, **modules: nn.Module) -> None:
+    """Load the tensors of a reference ``.ckpt`` under each name's prefix
+    (``denoiser.``, ``autoencoder.``) into the module of that name; keys the
+    modules lack are refused, keys the file lacks keep their weights."""
     ckpt = torch.load(load, map_location="cpu", weights_only=False)
+    prefixes = tuple(f"{name}." for name in modules)
     state_dict = {k: v for k, v in ckpt.get("state_dict", ckpt).items()
-                  if k.startswith(("denoiser.", "autoencoder.")) and not UNUSED_KEYS.match(k)}
+                  if k.startswith(prefixes) and not UNUSED_KEYS.match(k)}
     holder = nn.Module()
-    holder.denoiser, holder.autoencoder = engine.unet, engine.vae
+    for name, module in modules.items():
+        setattr(holder, name, module)
     missing, unexpected = holder.load_state_dict(state_dict, strict=False)
     if unexpected:
         raise ValueError(f"{load}: keys the model does not have: {unexpected[:8]}")
@@ -151,13 +160,14 @@ def build_flagship(device="cuda", dtype: torch.dtype = torch.bfloat16,
                            scheduler, cfg_mode=cfg_mode)
 
 
-def build_flagship_train(device="cuda", seed: int = 0, remat: bool = False
-                         ) -> DiffusionEngine:
+def build_flagship_train(device="cuda", seed: int = 0, remat: bool = False,
+                         remat_policy: Optional[str] = None) -> DiffusionEngine:
     """The seeded flagship of :func:`build_flagship`, for training: the UNet
     computes in bf16 (its f32 masters live in the train state) and
-    rematerialises its blocks under ``remat``; the VAE is frozen."""
+    rematerialises its blocks under ``remat`` (with ``remat_policy``); the
+    VAE is frozen."""
     engine = build_flagship(device, torch.bfloat16, seed)
-    engine.unet.remat = remat
+    engine.unet.remat, engine.unet.remat_policy = remat, remat_policy
     engine.vae.requires_grad_(False)
     return engine
 

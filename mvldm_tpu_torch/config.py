@@ -134,8 +134,9 @@ class TrainerCfg:
     # Recompute each UNet block in the backward pass (activation memory
     # for FLOPs).
     remat: bool = False
-    # Remat policy: null = recompute everything per block; "dots" saves
-    # matmul/conv outputs and recomputes only elementwise work.
+    # Remat policy: null = recompute everything per block; "dots" keeps the
+    # 2-D products (no batch dimension) and recomputes the rest; any other
+    # value is refused when the UNet is built.
     remat_policy: Optional[str] = None
 
 

@@ -5,10 +5,9 @@ Numpy re-creation of the reference's ``DatasetRE10k``
 (``src/dataset/dataset_re10k.py``): iterates pixelSplat-format ``.torch``
 chunks, converts poses, filters wide-FOV scenes, samples view indices,
 rescales the world to baseline 1, decodes JPEGs, applies shims, and yields
-crop-shimmed :class:`Example` records in NHWC.
-
-The train stage's latent cache (``dataset.latent_cache``) is not ported
-yet: setting it raises.
+crop-shimmed :class:`Example` records in NHWC. With ``dataset.latent_cache``
+the train stage serves the cached VAE posterior moments instead of images
+(``data/latent_cache.py``); val and test ignore it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,7 +20,14 @@ from typing import Iterator, List, Literal, Optional, Tuple
 import numpy as np
 
 from .chunk_reader import convert_poses, decode_jpeg_bytes, load_chunk
-from .shims import apply_augmentation_shim, apply_crop_shim, apply_random_transform_shim
+from .latent_cache import LatentCacheReader
+from .shims import (
+    apply_augmentation_shim,
+    apply_crop_shim,
+    apply_random_transform_shim,
+    crop_shim_intrinsics,
+    reflect_extrinsics,
+)
 from .types import Example, Stage, ViewIndex, Views
 from .view_samplers import ViewSampler, ViewSamplerEvaluation
 
@@ -55,8 +61,9 @@ class DatasetRE10kCfg:
     make_baseline_1: bool = True
     baseline_epsilon: float = 1e-3
     max_fov: float = 100.0
-    # Precomputed VAE-latent cache root of the JAX package's training
-    # path; refused here until the port's training CLI reads it.
+    # Precomputed VAE-latent cache root (data/latent_cache.py). When set,
+    # the TRAIN stage yields latent posterior moments instead of decoded
+    # images — no JPEG decode, no LANCZOS resize, no per-step VAE encode.
     latent_cache: Optional[Path] = None
 
 
@@ -90,10 +97,12 @@ class DatasetRE10k:
             raise ValueError(
                 "Dataset root is not defined; pass dataset.root=<path>."
             )
-        if cfg.latent_cache is not None:
-            raise NotImplementedError(
-                "dataset.latent_cache is not supported by mvldm_tpu_torch yet "
-                "(the training CLI's slice); unset it to read the images.")
+        self._latents: Optional[LatentCacheReader] = None
+        if cfg.latent_cache is not None and stage == "train":
+            self._latents = LatentCacheReader(
+                cfg.latent_cache, self.data_stage,
+                image_shape=tuple(cfg.image_shape),
+            )
         root = Path(cfg.root) / self.data_stage
         self.chunks: List[Path] = sorted(
             p for p in root.iterdir() if p.suffix == ".torch"
@@ -145,7 +154,9 @@ class DatasetRE10k:
 
                 for view_index in view_indices:
                     result = self._build_example(
-                        scene, example, extrinsics, intrinsics, view_index)
+                        scene, example, extrinsics, intrinsics, view_index,
+                        chunk_stem=chunk_path.stem,
+                    )
                     if result is not None:
                         yield result
 
@@ -156,6 +167,7 @@ class DatasetRE10k:
         extrinsics: np.ndarray,
         intrinsics: np.ndarray,
         view_index: ViewIndex,
+        chunk_stem: str = "",
     ) -> Optional[Example]:
         extrinsics = extrinsics.copy()
 
@@ -171,6 +183,11 @@ class DatasetRE10k:
             extrinsics[:, :3, 3] /= scale
         else:
             scale = 1.0
+
+        if self._latents is not None:
+            return self._build_latent_example(
+                scene, extrinsics, intrinsics, view_index, chunk_stem, scale
+            )
 
         views = {}
         for role, indices in (("context", view_index.context),
@@ -202,6 +219,61 @@ class DatasetRE10k:
         if self.stage in ("train", "val") and self.cfg.random_transform_extrinsics:
             ex = apply_random_transform_shim(ex, rng=self.rng)
         return apply_crop_shim(ex, tuple(self.cfg.image_shape))
+
+    # The reference's RE10K chunks always hold 360x640 frames (shape guard
+    # above / reference dataset_re10k.py:149); precompute_latents enforces
+    # the same guard, so the latent path can fix up intrinsics without pixels.
+    SOURCE_SHAPE = (360, 640)
+
+    def _build_latent_example(
+        self,
+        scene: str,
+        extrinsics: np.ndarray,
+        intrinsics: np.ndarray,
+        view_index: ViewIndex,
+        chunk_stem: str,
+        scale: float,
+    ) -> Optional[Example]:
+        """Latent-cache twin of the image path: serves precomputed VAE
+        posterior moments and applies only the pose-side shims — the flip
+        augmentation picks the flipped-pixels latent variant (an encoder is
+        not flip-equivariant) plus the same extrinsics reflection, and the
+        crop shim reduces to its intrinsics fix-up."""
+        flip = False
+        if self.stage == "train" and self.cfg.augment:
+            # Same draw semantics as apply_augmentation_shim: keep when
+            # rng.random() < 0.5, reflect otherwise.
+            flip = not (self.rng.random() < 0.5)
+        if flip:
+            extrinsics = reflect_extrinsics(extrinsics)
+
+        views = {}
+        for role, indices in (("context", view_index.context),
+                              ("target", view_index.target)):
+            if indices is None:
+                continue
+            moments = self._latents.lookup(chunk_stem, scene, indices, flip)
+            if moments is None:
+                print(f"Skipped {scene}: not in the latent cache.")
+                return None
+            views[role] = Views(
+                image=None,
+                latent_moments=moments,
+                extrinsics=extrinsics[indices],
+                intrinsics=crop_shim_intrinsics(
+                    intrinsics[indices], self.SOURCE_SHAPE,
+                    tuple(self.cfg.image_shape),
+                ),
+                near=self._get_bound(self.near, len(indices), scale),
+                far=self._get_bound(self.far, len(indices), scale),
+                index=np.asarray(indices, dtype=np.int64),
+            )
+
+        ex = Example(scene=scene, context=views["context"],
+                     target=views.get("target"))
+        if self.cfg.random_transform_extrinsics:
+            ex = apply_random_transform_shim(ex, rng=self.rng)
+        return ex
 
     def __len__(self) -> int:
         if isinstance(self.view_sampler, ViewSamplerEvaluation):

@@ -61,6 +61,25 @@ def rescale_and_crop(
     return center_crop(scaled, intrinsics, shape)
 
 
+def crop_shim_intrinsics(
+    intrinsics: np.ndarray, in_shape: Tuple[int, int], out_shape: Tuple[int, int]
+) -> np.ndarray:
+    """The intrinsics side of :func:`rescale_and_crop` alone — a pure
+    function of the input/output shapes (scale-to-cover then center-crop),
+    used by the latent-cache path where no pixels exist to resize."""
+    h_in, w_in = in_shape
+    h_out, w_out = out_shape
+    assert h_out <= h_in and w_out <= w_in
+    scale_factor = max(h_out / h_in, w_out / w_in)
+    h_scaled = round(h_in * scale_factor)
+    w_scaled = round(w_in * scale_factor)
+    assert h_scaled == h_out or w_scaled == w_out
+    intrinsics = intrinsics.copy()
+    intrinsics[..., 0, 0] *= w_scaled / w_out
+    intrinsics[..., 1, 1] *= h_scaled / h_out
+    return intrinsics
+
+
 def apply_crop_shim_to_views(views: Views, shape: Tuple[int, int]) -> Views:
     images, intrinsics = rescale_and_crop(views.image, views.intrinsics, shape)
     return replace(views, image=images, intrinsics=intrinsics)

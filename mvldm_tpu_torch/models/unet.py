@@ -17,8 +17,9 @@ As in the JAX package:
 * ``remat`` (training) recomputes each ResNet, ``Transformer2D`` and
   ``SpatialTransformer3D`` block in the backward instead of keeping its
   activations, the counterpart of ``nn.remat`` around those blocks
-  (``torch.utils.checkpoint``, non-reentrant). The JAX ``remat_policy``
-  ("dots") is not carried over.
+  (``torch.utils.checkpoint``, non-reentrant); ``remat_policy="dots"``
+  keeps the 2-D products (``aten.mm`` / ``aten.addmm``) and recomputes
+  the rest, the counterpart of ``dots_with_no_batch_dims_saveable``.
 
 The public forward keeps the JAX layout: (b, v, h, w, c) in and out.
 """
@@ -31,7 +32,11 @@ from typing import List, Literal, Optional, Tuple, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from .layers import (
     Downsample,
@@ -90,6 +95,27 @@ class MultiViewUNetCfg:
     cross_view_max_size: int = 32
 
 
+REMAT_POLICIES = (None, "dots")
+# The products that remat_policy="dots" keeps: the 2-D products, which a
+# linear layer on (..., k) activations folds into. JAX's
+# dots_with_no_batch_dims_saveable keeps the dot_generals without batch
+# dimensions; its comment in mvldm_tpu/models/unet.py says "matmul/conv",
+# but a convolution is no dot_general there and is recomputed, as here. A
+# batched product (aten.bmm, the attention's scores) is recomputed in both,
+# and so is every hand kernel: it launches outside the dispatcher, as a
+# pallas_call is no dot_general.
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def _container(**modules) -> nn.Module:
     m = nn.Module()
     for name, mod in modules.items():
@@ -103,10 +129,12 @@ class MultiViewUNet(nn.Module):
     keys to cross-view attention)."""
 
     def __init__(self, cfg: MultiViewUNetCfg, in_channels: int = 11,
-                 out_channels: int = 4, remat: bool = False):
+                 out_channels: int = 4, remat: bool = False,
+                 remat_policy: Optional[str] = None):
         super().__init__()
         self.cfg = cfg
         self.remat = remat
+        self.remat_policy = remat_policy
         bb = cfg.autoencoder
         ch = bb.block_out_channels
         groups, eps, lpb = bb.norm_num_groups, bb.norm_eps, bb.layers_per_block
@@ -181,9 +209,23 @@ class MultiViewUNet(nn.Module):
         if cfg.decoder_conditioning:
             self.cross_attn_blocks_decoder = nn.ModuleList([cross(c) for c in rev])
 
+    @property
+    def remat_policy(self) -> Optional[str]:
+        return self._remat_policy
+
+    @remat_policy.setter
+    def remat_policy(self, policy: Optional[str]) -> None:
+        if policy not in REMAT_POLICIES:
+            raise ValueError(f"Unknown remat_policy {policy!r}; expected one of "
+                             f"{REMAT_POLICIES}")
+        self._remat_policy = policy
+
     def _block(self, fn, *args):
-        """Run one block, rematerialised in the backward under ``remat``."""
+        """Run one block, rematerialised in the backward under ``remat``
+        (all of it, or all but the 2-D products under ``"dots"``)."""
         if self.remat and torch.is_grad_enabled():
+            if self.remat_policy == "dots":
+                return checkpoint(fn, *args, use_reentrant=False, context_fn=_dots_context)
             return checkpoint(fn, *args, use_reentrant=False)
         return fn(*args)
 

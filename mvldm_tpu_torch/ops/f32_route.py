@@ -28,6 +28,10 @@ nothing is caught to fall back.
 * :func:`attention_rows_f32` — the route's row pass (lse, P = exp(S - lse)
   in place). Plain version :func:`attention_rows_reference`.
 
+:func:`no_tf32` scopes the route's rule to a block of work: cuBLAS and
+cuDNN (the convolutions of an f32 model) compute in full f32 there, not
+TF32, whatever PyTorch's global flags say.
+
 Each counts its calls in ``<wrapper>.launches``; ``gemm_f32`` and
 ``attention_rows_f32`` count every launch of their kernel, whichever
 wrapper makes it. Weights are in the JAX layout ((C, H*D) etc.), as
@@ -36,6 +40,7 @@ transposes of contiguous torch Linear weights.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import List, Optional, Tuple
@@ -43,6 +48,18 @@ from typing import List, Optional, Tuple
 import torch
 
 from . import _build
+
+@contextlib.contextmanager
+def no_tf32():
+    """Full f32 in cuBLAS and cuDNN for the block (TF32 off for both), the
+    flags as they were after it."""
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {

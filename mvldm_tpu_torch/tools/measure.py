@@ -9,11 +9,12 @@ the card's name and power limit (:func:`card_line`).
 
 from __future__ import annotations
 
-import contextlib
 import subprocess
 from typing import Callable, List, Optional, Tuple
 
 import torch
+
+from ..ops.f32_route import no_tf32  # noqa: F401  (the f32 yardsticks' scope)
 
 PEAK_BF16_FLOPS = 989e12  # bf16 tensor cores (mma / wgmma)
 PEAK_FP32_FLOPS = 67e12   # f32 FFMA outside the tensor cores
@@ -21,18 +22,6 @@ PEAK_TF32_FLOPS = 494.7e12  # TF32 tensor cores (wgmma); an f32 product as split
 PEAK_BYTES = 3.35e12      # HBM3
 EXP2_PER_CLOCK_PER_SM = 16  # MUFU ex2 (CUDA arithmetic-throughput table, sm_90)
 TARGET_MS = 50.0  # device time a replay of an unsized timing fills
-
-
-@contextlib.contextmanager
-def no_tf32():
-    """Full f32 in cuBLAS and cuDNN for the block (TF32 off for both), the
-    flags as they were after it."""
-    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
 
 
 def card_line() -> str:

@@ -19,13 +19,22 @@ card), a group of tensors at a time to bound the temporaries:
   stochastic rounding (:func:`stochastic_round`) in ``nu_dtype`` and, when
   set, ``mu_dtype``; b1 stays f32 here;
 * Adam: the same without decay; SGD: optional momentum trace;
+* Adafactor (``optax.adafactor`` of optax 0.2.6, the JAX package's chain):
+  the factored second moment of ``scale_by_factored_rms`` (decay
+  1 - (count + 1)^-decay_rate; a tensor whose two largest dims are both at
+  least 128 keeps a row and a column vector over them, any other a
+  full-shape one), ``clip_by_block_rms``, the learning rate,
+  ``scale_by_param_block_rms(1e-3)``, optional ``ema(momentum,
+  debias=False)``, ``add_decayed_weights`` (after the learning rate), then
+  the sign; a tensor at a time (no kernel: the JAX package computes it with
+  XLA ops too);
 * accumulation every k micro-steps: the running mean of the gradients
   (``acc + (g - acc) / (n + 1)``) is clipped and applied on the k-th step;
   the LR and Adam counts advance only on applied steps.
 
 :class:`SetToZero` is ``optax.set_to_zero()``, the whole chain of a frozen
 denoiser. ``torch.optim.AdamW`` is not used: it has no bf16 moment storage
-and applies weight decay differently. Adafactor is not ported yet.
+and applies weight decay differently.
 """
 
 from __future__ import annotations
@@ -138,8 +147,20 @@ def _chunks(params: Dict[str, torch.Tensor]) -> List[List[str]]:
     return chunks
 
 
+def factored_dims(shape, min_dim_size_to_factor: int = 128) -> Optional[Tuple[int, int]]:
+    """optax's ``_factored_dims``: (d1, d0), the second largest and the
+    largest dim (``np.argsort`` order on ties), when the second largest is
+    at least ``min_dim_size_to_factor``; None otherwise."""
+    if len(shape) < 2:
+        return None
+    sorted_dims = np.argsort(shape)
+    if shape[sorted_dims[-2]] < min_dim_size_to_factor:
+        return None
+    return int(sorted_dims[-2]), int(sorted_dims[-1])
+
+
 class Optimizer:
-    """clip -> AdamW | Adam | SGD -> every-k accumulation, in place.
+    """clip -> AdamW | Adam | SGD | Adafactor -> every-k accumulation, in place.
 
     ``init(params)`` builds the state (a dict of ints and tensor dicts that
     ``torch.save`` stores); ``apply(params, grads, state)`` updates the f32
@@ -152,9 +173,11 @@ class Optimizer:
     def __init__(self, name: str, lr_schedule: Callable[[int], float], *,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 0.0, mu_dtype: Optional[torch.dtype] = None,
-                 nu_dtype: Optional[torch.dtype] = None, momentum: float = 0.0,
-                 clip: Optional[float] = None, every_k: int = 1):
-        if name not in ("AdamW", "Adam", "SGD"):
+                 nu_dtype: Optional[torch.dtype] = None, momentum: Optional[float] = 0.0,
+                 clip: Optional[float] = None, every_k: int = 1,
+                 decay_rate: float = 0.8, multiply_by_parameter_scale: bool = True,
+                 clipping_threshold: Optional[float] = 1.0):
+        if name not in ("AdamW", "Adam", "SGD", "Adafactor"):
             raise ValueError(f"Unknown optimizer: {name}")
         if nu_dtype is not None and name != "AdamW":
             raise ValueError(f"{name} takes no nu_dtype")
@@ -163,6 +186,8 @@ class Optimizer:
         self.weight_decay, self.mu_dtype, self.momentum = weight_decay, mu_dtype, momentum
         self.nu_dtype = nu_dtype
         self.clip, self.every_k = clip, every_k
+        self.decay_rate, self.clipping_threshold = decay_rate, clipping_threshold
+        self.multiply_by_parameter_scale = multiply_by_parameter_scale
 
     def init(self, params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         def zeros(dtype=None):
@@ -172,6 +197,18 @@ class Optimizer:
         if self.name in ("AdamW", "Adam"):
             state["mu"] = zeros(self.mu_dtype)
             state["nu"] = zeros(self.nu_dtype)
+        elif self.name == "Adafactor":
+            state.update(v_row={}, v_col={}, v={})
+            for k, p in params.items():
+                dims = factored_dims(p.shape)
+                if dims is None:
+                    state["v"][k] = torch.zeros_like(p)
+                else:
+                    d1, d0 = dims
+                    state["v_row"][k] = torch.zeros_like(p.select(d0, 0))
+                    state["v_col"][k] = torch.zeros_like(p.select(d1, 0))
+            if self.momentum is not None:
+                state["ema"] = zeros(torch.float32)
         elif self.momentum:
             state["trace"] = zeros()
         if self.every_k > 1:
@@ -212,6 +249,9 @@ class Optimizer:
                     trace = [state["trace"][k] for k in names]
                     upd = torch._foreach_add(g, torch._foreach_mul(trace, self.momentum))
                     torch._foreach_copy_(trace, upd)
+            elif self.name == "Adafactor":
+                torch._foreach_sub_(p, self._adafactor(names, g, p, state, count, lr))
+                continue
             elif self.nu_dtype is not None:
                 upd = self._adam_lp(names, g, p, state, count + 1, noise)
             else:
@@ -270,6 +310,47 @@ class Optimizer:
         return upd
 
 
+    def _adafactor(self, names: List[str], g, p, state, count: int, lr: float
+                   ) -> List[torch.Tensor]:
+        """optax's adafactor chain on one group, up to its final sign: the
+        returned update is subtracted from the parameters. ``count`` is the
+        number of updates applied before this one."""
+        f32 = np.float32
+        decay = f32(1) - f32(count + 1) ** f32(-self.decay_rate)
+        keep, take = float(decay), float(f32(1) - decay)
+        upd = []
+        for k, gk, pk in zip(names, g, p):
+            g2 = gk * gk + 1e-30
+            dims = factored_dims(gk.shape)
+            if dims is None:
+                v = state["v"][k]
+                v.copy_(v * keep + g2 * take)
+                u = gk * v.rsqrt()
+            else:
+                d1, d0 = dims
+                v_row, v_col = state["v_row"][k], state["v_col"][k]
+                v_row.copy_(v_row * keep + g2.mean(dim=d0) * take)
+                v_col.copy_(v_col * keep + g2.mean(dim=d1) * take)
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)).rsqrt()
+                u = gk * row_factor.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
+            if self.clipping_threshold is not None:
+                u = u / torch.clamp(u.square().mean().sqrt() / self.clipping_threshold, min=1.0)
+            u = u * lr
+            if self.multiply_by_parameter_scale:
+                rms = pk.square().mean().sqrt()
+                u = u * torch.where(rms <= 1e-3, 1e-3, rms)
+            upd.append(u)
+        if self.momentum is not None:
+            ema = [state["ema"][k] for k in names]
+            torch._foreach_copy_(ema, torch._foreach_add(torch._foreach_mul(upd, 1 - self.momentum),
+                                                         torch._foreach_mul(ema, self.momentum)))
+            upd = [e.clone() for e in ema]
+        if self.weight_decay:
+            upd = torch._foreach_add(upd, torch._foreach_mul(p, self.weight_decay))
+        return upd
+
+
 def global_norm(tensors: List[torch.Tensor]) -> float:
     """sqrt(sum of squares) over every element of ``tensors``, in f32."""
     norms = torch._foreach_norm(tensors, 2, dtype=torch.float32)
@@ -280,7 +361,7 @@ def build_optimizer(optimizer_cfg: OptimizerCfg, lr_schedule: Callable[[int], fl
                     gradient_clip_val: Optional[float] = None,
                     accumulate_grad_batches: int = 1) -> Optimizer:
     """The JAX ``build_optimizer``'s chain for AdamW (with ``mu_dtype`` and,
-    by stochastic rounding, ``nu_dtype``), Adam and SGD."""
+    by stochastic rounding, ``nu_dtype``), Adam, SGD and Adafactor."""
     kwargs = optimizer_cfg.kwargs or {}
     name = optimizer_cfg.name
     b1, b2 = kwargs.get("betas", (0.9, 0.999))
@@ -295,6 +376,13 @@ def build_optimizer(optimizer_cfg: OptimizerCfg, lr_schedule: Callable[[int], fl
                          **common)
     if name == "SGD":
         return Optimizer("SGD", lr_schedule, momentum=kwargs.get("momentum", 0.0), **common)
+    if name == "Adafactor":
+        return Optimizer("Adafactor", lr_schedule, momentum=kwargs.get("momentum"),
+                         weight_decay=kwargs.get("weight_decay") or 0.0,
+                         decay_rate=kwargs.get("decay_rate", 0.8),
+                         multiply_by_parameter_scale=kwargs.get("multiply_by_parameter_scale",
+                                                                True),
+                         clipping_threshold=kwargs.get("clipping_threshold", 1.0), **common)
     raise ValueError(f"Unknown optimizer: {name}")
 
 

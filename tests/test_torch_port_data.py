@@ -187,11 +187,17 @@ def test_dataset_re10k_matches_jax(data_root, stage, kw):
 
 
 def test_dataset_re10k_refuses_the_latent_cache(data_root):
+    """The train stage reads ``dataset.latent_cache`` and refuses a
+    directory that holds no cache; val and test ignore it, as in JAX."""
     cfg = dataset_re10k.DatasetRE10kCfg(root=data_root, latent_cache=data_root)
-    sampler = view_samplers.ViewSamplerAll(view_samplers.ViewSamplerAllCfg(), "train",
-                                           False, False, None)
-    with pytest.raises(NotImplementedError, match="latent_cache"):
-        dataset_re10k.DatasetRE10k(cfg, "train", sampler)
+    for stage in ("train", "val", "test"):
+        sampler = view_samplers.ViewSamplerAll(view_samplers.ViewSamplerAllCfg(), stage,
+                                               False, False, None)
+        if stage == "train":
+            with pytest.raises(FileNotFoundError, match="meta.json"):
+                dataset_re10k.DatasetRE10k(cfg, stage, sampler)
+        else:
+            assert dataset_re10k.DatasetRE10k(cfg, stage, sampler)._latents is None
 
 
 def test_dataset_re10k_v2_matches_jax(data_root):

@@ -136,17 +136,23 @@ def meta_engine(overrides, steps=None):
     return cfg, engine
 
 
-def train_step_launches(counts, overrides) -> dict:
-    """One training step's loss and backward at the config's batch."""
+def train_step_launches(counts, overrides, latents: bool = False) -> dict:
+    """One training step's loss and backward at the config's batch, from
+    images or, with ``latents``, from cached posterior moments."""
     cfg, engine = meta_engine(overrides)
     b = cfg.data_loader.train.batch_size
     views = {"context": cfg.dataset.view_sampler.num_context_views,
              "target": cfg.dataset.view_sampler.num_target_views}
     raw = {role: {"image": torch.empty((b, n, 256, 256, 3)),
                   "extrinsics": torch.eye(4).repeat(b, n, 1, 1),
-                  "intrinsics": torch.eye(3).repeat(b, n, 1, 1)} for role, n in views.items()}
-    batch = batch_from_arrays(*(raw[r][k] for k in ("image", "extrinsics", "intrinsics")
-                                for r in ("context", "target")))
+                  "intrinsics": torch.eye(3).repeat(b, n, 1, 1),
+                  "latent_moments": torch.empty((b, n, 32, 32, 8))}
+           for role, n in views.items()}
+    keys = ("image", "extrinsics", "intrinsics")
+    batch = batch_from_arrays(*(None if latents and k == "image" else raw[r][k]
+                                for k in keys for r in ("context", "target")),
+                              *((raw["context"]["latent_moments"],
+                                 raw["target"]["latent_moments"]) if latents else ()))
     counts.update(dict.fromkeys(counts, 0))
     loss, _ = engine.training_loss(batch, views["context"])
     loss.backward()
@@ -170,19 +176,22 @@ def val_scene_launches(counts, overrides) -> dict:
     return {k: one[k] + (steps - 1) * (two[k] - one[k]) for k in counts}
 
 
-# run: (config overrides, training steps, validation scenes)
+# run: (config overrides, training steps, validation scenes, from the latent cache)
 TRAIN_RUNS = {
-    "train": ([], 4, 2 * 2),                       # (f): hooks at steps 2 and 4, 2 scenes each
-    "train_resume": ([], 2, 1 * 2),                # (g): steps 5-6, a hook at step 6
-    "val": ([], 0, 2),                             # (h): one val batch of 2 scenes
-    "train_tpu_fast": (["+experiment=tpu_fast"], 4, 0),  # (i): remat, no hook by step 4
+    "train": ([], 4, 2 * 2, False),                # (f): hooks at steps 2 and 4, 2 scenes each
+    "train_resume": ([], 2, 1 * 2, False),         # (g): steps 5-6, a hook at step 6
+    "val": ([], 0, 2, False),                      # (h): one val batch of 2 scenes
+    "train_tpu_fast": (["+experiment=tpu_fast"], 4, 0, False),  # (i): remat, no hook by step 4
+    "train_latent_cache": (["+experiment=tpu_fast"], 4, 0, True),  # (k): no VAE encode
+    "train_adafactor": (["optimizer.name=Adafactor"], 2, 0, False),  # (l)
+    "train_remat_dots": (["trainer.remat=true", "trainer.remat_policy=dots"], 2, 0, False),  # (m)
 }
 
 
 @pytest.mark.parametrize("run", list(TRAIN_RUNS))
 def test_chip_smoke_training_cli_launch_counts_are_the_plans(kernel_counters, run):
-    overrides, steps, scenes = TRAIN_RUNS[run]
-    step = train_step_launches(kernel_counters, overrides)
+    overrides, steps, scenes, latents = TRAIN_RUNS[run]
+    step = train_step_launches(kernel_counters, overrides, latents)
     scene = val_scene_launches(kernel_counters, overrides)
     plan = {k: steps * step[k] + scenes * scene[k] for k in TRAIN_NAMES}
     assert plan == chip_smoke.TRAIN_CLI_LAUNCHES[run]

@@ -53,6 +53,16 @@ TRAIN_SLICE = [
         "validation_in_3d")),
 ]
 
+# The modules of the training variants' and the evaluation's slice.
+EVAL_SLICE = [
+    "mvldm_tpu_torch.data.latent_cache",
+    *(f"mvldm_tpu_torch.evaluation.{m}" for m in (
+        "fid", "inception", "metric_computer", "metrics")),
+    *(f"mvldm_tpu_torch.scripts.{m}" for m in (
+        "compute_fid", "compute_metrics", "generate_gt", "generate_gt_image_directory",
+        "precompute_latents")),
+]
+
 
 def test_importing_every_module_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
@@ -60,7 +70,8 @@ def test_importing_every_module_loads_no_jax():
     assert out.returncode == 0, out.stderr
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(result["imported"]) >= 40
-    assert [m for m in CLI_SLICE + TRAIN_SLICE if m not in result["imported"]] == []
+    assert [m for m in CLI_SLICE + TRAIN_SLICE + EVAL_SLICE
+            if m not in result["imported"]] == []
     assert result["bad"] == []
     assert result["lazy"] == []
 
