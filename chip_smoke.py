@@ -132,8 +132,26 @@ Phases, each fatal on failure (non-zero exit, no final result line):
    and Inception weights in the real layouts and ``--allow-init-vae``: the
    JSON trees' keys, no bf16 launch, the f32 VAE encodes' launches against
    their plan, and the metrics and FID features against the port's CPU
-   run on the same images (EVAL_PSNR_SSIM_REL, EVAL_FEATURE_REL). It runs
-   last.
+   run on the same images (EVAL_PSNR_SSIM_REL, EVAL_FEATURE_REL).
+15. cli_parallel, multi-rank training and the last modules: (o) the
+   training CLI at ``+experiment=baseline`` (batch 6, accumulation 2, a
+   seeded train stream), 2 steps with no process group, then under each
+   ``trainer.strategy`` (data_parallel, data_parallel_zero1,
+   data_parallel_fsdp, data_model with num_model=1) with the
+   ``MVLDM_COORDINATOR`` triplet at world 1 over NCCL: the logged loss and
+   grad norm and the saved masters, EMA and moments against the run with
+   no process group (the WORLD1_* bounds), launches equal to
+   PARALLEL_CLI_LAUNCHES; (p) two ranks sharing the card over gloo with
+   CUDA tensors (``python3 chip_smoke.py --rank-job``): a ``data_parallel``
+   step at batch 2 a rank and a ``data_model`` step with 2 model ranks,
+   each rank's loss and global gradient against one card's on the same
+   examples and draws (TRAIN_LOSS_REL_BOUND, TRAIN_GRAD_REL_L2_BOUND), each
+   rank's peak memory, every training kernel launched on each rank; (q)
+   ``mode=test`` on two such ranks: the ranks' scenes disjoint and
+   together the stage's; (r) ``utils.ckpt_manifest``'s census equal to
+   ``assets/mvldm_1.0_manifest.json``, ``scripts.verify_parity`` smoke at
+   ``+experiment=baseline`` (f32) writing a finite fixture and its fixture
+   mode passing. It runs last.
 
 Every result is one JSON line. The last two lines are the card as
 ``nvidia-smi`` names it and ``{"ok": true, "device": {...}}``.
@@ -2139,6 +2157,455 @@ def sass_phase(card: str) -> None:
                  f"(or with HMMA) {bad}; FFMA bodies left {left}")
 
 
+# ------------------------------------------------------- multi-rank (cli_parallel)
+
+PARALLEL_STRATEGIES = ("data_parallel", "data_parallel_zero1", "data_parallel_fsdp",
+                       "data_model")
+# (o): two baseline steps at batch 6 (one update: accumulation 2), no hook.
+PARALLEL_CLI_LAUNCHES = _plan(2, _TRAIN_STEP, 0)
+# (o) at world 1 against the run with no process group, on the same seeded
+# data stream. Every collective of a world of one is an identity, so the
+# loss (a forward on the same weights, data and draws) must agree to
+# WORLD1_LOSS_REL (0 expected). The backward may not repeat itself bit for
+# bit (cuDNN picks weight-gradient algorithms that accumulate in no fixed
+# order), so the gradient norm is held to WORLD1_NORM_REL and the moments
+# to WORLD1_MOMENT_REL relative L2: a collective that counted a leaf twice
+# or dropped it reads O(1). The masters move by ~1e-8 at step 1's LinearLR
+# factor (5e-4 of 2e-5), so they are held to one f32 ulp of an O(1) weight.
+WORLD1_LOSS_REL = 1e-6
+WORLD1_NORM_REL = 1e-3
+WORLD1_MOMENT_REL = 1e-2
+WORLD1_MASTER_ABS = 1.2e-7
+# (p): the time limit of a two-rank run, and the rank processes' command.
+RANK_TIMEOUT_S = 600
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _tree_diff(got: dict, want: dict) -> dict:
+    """Bitwise equality, relative L2 and largest absolute difference of two
+    dicts of tensors."""
+    num = den = 0.0
+    worst, bitwise = 0.0, True
+    for k, w in want.items():
+        g, w = got[k].to("cuda"), w.to("cuda")  # one leaf at a time on the card
+        bitwise = bitwise and torch.equal(g, w)
+        g, w = g.float(), w.float()
+        num += (g - w).square().sum().item()
+        den += w.square().sum().item()
+        worst = max(worst, (g - w).abs().max().item())
+    return {"bitwise": bitwise, "rel_l2": (num / den) ** 0.5 if den else num ** 0.5,
+            "max_abs": worst}
+
+
+def parallel_world1_runs(card: str, data, runs_dir, kernels, f32_kernels) -> dict:
+    """(o) ``scripts.main mode=train +experiment=baseline`` (batch 6,
+    accumulation 2), 2 steps, with no process group, then under each
+    strategy with the env triplet at world 1 over NCCL (``data_model`` with
+    ``trainer.num_model=1``): the logged loss and grad norm and the saved
+    masters, EMA and moments against the run without one (the WORLD1_*
+    bounds), launches equal to PARALLEL_CLI_LAUNCHES. The train stream is
+    seeded (``data_loader.train.seed=0``) so that every run reads the same
+    batches."""
+    import shutil
+
+    from mvldm_tpu_torch.scripts import main as main_script
+
+    common = ["+experiment=baseline", "mode=train", f"dataset.root={data}",
+              "trainer.max_steps=2", "data_loader.train.seed=0"]
+    ref_dir = runs_dir / "single"
+    r = run_counted(kernels, f32_kernels, main_script.main, common + [f"output_dir={ref_dir}"])
+    ref_log = json.loads((ref_dir / "metrics.jsonl").read_text().splitlines()[-1])
+    ref = saved_state(ref_dir, 2)
+    emit(phase="cli_parallel", run="o_no_process_group", **r,
+         expected_launches=PARALLEL_CLI_LAUNCHES, loss=ref_log["loss/diffusion"],
+         grad_norm=ref_log["grad_norm"], card=card)
+    by_run = {"o_no_process_group": r["launches"]}
+    for name in PARALLEL_STRATEGIES:
+        out = runs_dir / name
+        env = {"MVLDM_COORDINATOR": f"localhost:{_free_port()}", "MVLDM_NUM_PROCESSES": "1",
+               "MVLDM_PROCESS_ID": "0"}
+        os.environ.update(env)
+        try:
+            r = run_counted(kernels, f32_kernels, main_script.main,
+                            common + [f"output_dir={out}", f"trainer.strategy={name}",
+                                      "trainer.num_model=1"])
+        finally:
+            for k in env:
+                os.environ.pop(k)
+        log = json.loads((out / "metrics.jsonl").read_text().splitlines()[-1])
+        state = saved_state(out, 2)
+        diffs = {key: _tree_diff(state[key], ref[key]) for key in ("params", "ema_params")
+                 if ref[key] is not None}
+        diffs.update({m: _tree_diff(state["opt_state"][m], ref["opt_state"][m])
+                      for m in ("mu", "nu")})
+        loss_rel = abs(log["loss/diffusion"] - ref_log["loss/diffusion"]) / abs(
+            ref_log["loss/diffusion"])
+        norm_rel = abs(log["grad_norm"] - ref_log["grad_norm"]) / ref_log["grad_norm"]
+        emit(phase="cli_parallel", run=f"o_{name}", argv=" ".join(common + [
+            f"trainer.strategy={name}"]), what="scripts.main.main under the env triplet at "
+             "world 1 (NCCL), wall time of the call", **r,
+             expected_launches=PARALLEL_CLI_LAUNCHES, nccl_version=list(torch.cuda.nccl.version()),
+             loss=log["loss/diffusion"], loss_rel=loss_rel, grad_norm_rel=norm_rel,
+             vs_no_process_group=diffs, bounds={"loss_rel": WORLD1_LOSS_REL,
+                                                "grad_norm_rel": WORLD1_NORM_REL,
+                                                "moment_rel_l2": WORLD1_MOMENT_REL,
+                                                "master_abs": WORLD1_MASTER_ABS}, card=card)
+        shutil.rmtree(out)
+        if r["launches"] != PARALLEL_CLI_LAUNCHES or any(r["f32_launches"].values()):
+            fail(f"cli_parallel {name}: launched {r['launches']} (plan "
+                 f"{PARALLEL_CLI_LAUNCHES}), f32 {r['f32_launches']}")
+        masters_off = max(d["max_abs"] for k, d in diffs.items() if k.endswith("params"))
+        if not (loss_rel <= WORLD1_LOSS_REL and norm_rel <= WORLD1_NORM_REL
+                and diffs["mu"]["rel_l2"] <= WORLD1_MOMENT_REL
+                and diffs["nu"]["rel_l2"] <= WORLD1_MOMENT_REL
+                and masters_off <= WORLD1_MASTER_ABS):
+            fail(f"cli_parallel {name}: against the run without a process group: loss "
+                 f"{loss_rel:.3g}, grad norm {norm_rel:.3g}, {diffs}")
+        by_run[f"o_{name}"] = r["launches"]
+    shutil.rmtree(ref_dir)
+    return by_run
+
+
+def launch_ranks(job: dict, tag: str, world: int = 2) -> list:
+    """``python3 chip_smoke.py --rank-job <job>`` on ``world`` ranks that
+    share the card over gloo (NCCL refuses two ranks on one device), killed
+    after RANK_TIMEOUT_S; returns each rank's result dict and output."""
+    import subprocess
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent / "build" / "cli_parallel" / tag
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "job.json").write_text(json.dumps(dict(job, out=str(root))))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    port = _free_port()
+    procs = []
+    try:
+        for r in range(world):
+            env = dict(os.environ, MVLDM_COORDINATOR=f"localhost:{port}",
+                       MVLDM_NUM_PROCESSES=str(world), MVLDM_PROCESS_ID=str(r),
+                       MVLDM_BACKEND="gloo")
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--rank-job",
+                 str(root / "job.json")], env=env, cwd=Path(__file__).resolve().parent,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        logs = [p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        fail(f"{tag}: the ranks did not end within {RANK_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail(f"{tag}: rank {r} exited {p.returncode}:\n{log[-6000:]}")
+    return [dict(json.loads((root / f"rank{r}.json").read_text()), log=logs[r])
+            for r in range(world)]
+
+
+def _counted_kernels():
+    from mvldm_tpu_torch.ops.attention import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+    from mvldm_tpu_torch.ops.f32_route import KERNELS as F32_KERNELS
+    from mvldm_tpu_torch.ops.fused_attn import fused_ln_self_attention
+    from mvldm_tpu_torch.ops.fused_ff import fused_ln_geglu_ff
+
+    return (flash_attention, fused_ln_self_attention, fused_ln_geglu_ff,
+            flash_attention_bwd_dq, flash_attention_bwd_dkv), tuple(F32_KERNELS)
+
+
+def rank_step_job(job: dict, rank: int) -> dict:
+    """One flagship training step (bf16, seeded weights, the baseline AdamW)
+    under ``job["strategy"]`` on this rank's ``job["batch"]`` examples of
+    ``make_train_batch``, with the draws of its data rank's generator
+    (``step_seed(0, 0, data_rank)``). Rank 0 first runs the same loss and
+    backward on one card over every data rank's examples and draws, then
+    holds the strategy's loss and global gradient against it."""
+    from mvldm_tpu_torch.builder import build_flagship_train, make_train_batch
+    from mvldm_tpu_torch.diffusion.engine import Batch, TrainDraws
+    from mvldm_tpu_torch.parallel.mesh import make_mesh
+    from mvldm_tpu_torch.training import (
+        LRSchedulerCfg,
+        OptimizerCfg,
+        build_lr_schedule,
+        build_optimizer,
+    )
+    from mvldm_tpu_torch.training.strategy import Strategy, step_seed
+    from mvldm_tpu_torch.training.trainer import TrainState, make_train_step, master_params
+
+    kernels, f32_kernels = _counted_kernels()
+    engine = build_flagship_train("cuda")
+    mesh = make_mesh(num_model=job["num_model"])
+    b, nd = job["batch"], mesh.num_data
+    full = make_train_batch(b * nd)
+    draws = [TrainDraws.draw(b, 5, 2, (32, 32, 4), 1000,
+                             torch.Generator().manual_seed(step_seed(0, 0, d)))
+             for d in range(nd)]
+    out = {}
+    if rank == 0:
+        cat = TrainDraws(**{f: torch.cat([getattr(d, f) for d in draws])
+                            for f in TrainDraws.__dataclass_fields__})
+        loss, _ = engine.training_loss(full, 2, cat)
+        loss.backward()
+        ref = {n: (p.grad.float() if p.grad is not None else torch.zeros(p.shape, device="cuda"))
+               for n, p in engine.unet.named_parameters()}
+        out["one_card_loss"] = loss.item()
+        for p in engine.unet.parameters():
+            p.grad = None
+        del loss
+    tx = build_optimizer(
+        OptimizerCfg("AdamW", 2e-5, {"mu_dtype": "bfloat16"}),
+        build_lr_schedule(2e-5, LRSchedulerCfg("LinearLR", {"start_factor": 5e-4,
+                                                            "total_iters": 200})),
+        gradient_clip_val=0.1)
+    strategy = Strategy(job["strategy"], mesh, engine.unet, tx)
+    params = strategy.store(master_params(engine.unet))
+    state = TrainState(params=params, opt_state=tx.init(strategy.optimizer_params(params)),
+                       ema_params=None, step=0)
+    seen = {}
+    apply = tx.apply
+
+    def recording_apply(params_, grads, opt_state, noise=None, **callbacks):
+        if rank == 0:
+            whole = strategy.whole(grads, sliced=True)
+            num = sum((whole[n] - ref[n]).square().sum().item() for n in ref)
+            den = sum(ref[n].square().sum().item() for n in ref)
+            seen["grad_rel_l2"] = (num / den) ** 0.5
+            seen["finite"] = all(bool(torch.isfinite(g).all()) for g in whole.values())
+        else:
+            strategy.whole(grads, sliced=True)  # the gather is collective
+        return apply(params_, grads, opt_state, noise, **callbacks)
+
+    tx.apply = recording_apply
+    step = make_train_step(engine, tx, 2, strategy=strategy)
+    rows = slice(mesh.data_rank * b, (mesh.data_rank + 1) * b)
+    batch = Batch(**{f: getattr(full, f)[rows] if getattr(full, f) is not None else None
+                     for f in ("images", "extrinsics", "intrinsics", "is_target",
+                               "latent_moments")})
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels + f32_kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch, draws[mesh.data_rank])
+    torch.cuda.synchronize()
+    out.update(wall_s=time.perf_counter() - t0, held_before_gb=held,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=_counts(kernels), f32_launches=_counts(f32_kernels),
+               loss=float(metrics["loss/diffusion"]), grad_norm=float(metrics["grad_norm"]),
+               sliced_leaves=len(strategy.sliced), **seen)
+    return out
+
+
+def rank_cli_job(job: dict, rank: int) -> dict:
+    """``scripts.main.main(job["argv"])`` in this rank's process group, with
+    the kernels' launches."""
+    from mvldm_tpu_torch.scripts import main as main_script
+
+    kernels, f32_kernels = _counted_kernels()
+    for k in kernels + f32_kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    main_script.main(job["argv"])
+    torch.cuda.synchronize()
+    return {"wall_s": time.perf_counter() - t0, "launches": _counts(kernels),
+            "f32_launches": _counts(f32_kernels),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def rank_job_main(path: str) -> int:
+    """The entry of one rank of :func:`launch_ranks`: the process group from
+    the env triplet (gloo, CUDA tensors), one job, its result JSON."""
+    from pathlib import Path
+
+    from mvldm_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed,
+        shutdown_distributed,
+    )
+
+    job = json.loads(Path(path).read_text())
+    rank = int(os.environ["MVLDM_PROCESS_ID"])
+    if job["kind"] == "cli":  # main() starts and ends the process group itself
+        out = rank_cli_job(job, rank)
+    else:
+        maybe_initialize_distributed(device="cuda")
+        try:
+            out = rank_step_job(job, rank)
+        finally:
+            shutdown_distributed()
+    out["backend"] = os.environ.get("MVLDM_BACKEND")
+    (Path(job["out"]) / f"rank{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def parallel_two_rank_steps(card: str) -> dict:
+    """(p) two ranks sharing the card over gloo (CUDA tensors): a
+    ``data_parallel`` step at batch 2 a rank, and a ``data_model`` step with
+    ``num_model=2`` (the flash kernels on 4 of 8 heads, the per-frame blocks
+    on half the frames) at batch 2; rank 0 holds each step's loss and global
+    gradient against one card's on the same examples and draws
+    (TRAIN_LOSS_REL_BOUND, TRAIN_GRAD_REL_L2_BOUND), and every kernel of a
+    training step must launch on each rank."""
+    by_run = {}
+    for name, nm in (("data_parallel", 1), ("data_model", 2)):
+        ranks = launch_ranks(dict(kind="step", strategy=name, num_model=nm, batch=2),
+                             f"p_{name}")
+        r0 = ranks[0]
+        loss_rel = abs(r0["loss"] - r0["one_card_loss"]) / abs(r0["one_card_loss"])
+        for r, res in enumerate(ranks):
+            emit(phase="cli_parallel", run=f"p_{name}", rank=r,
+                 what="one flagship training step (bf16) on 2 ranks sharing the card over "
+                 "gloo with CUDA tensors, batch 2 a rank", **{k: v for k, v in res.items()
+                                                             if k != "log"}, card=card)
+        if not (loss_rel <= TRAIN_LOSS_REL_BOUND and r0["finite"]
+                and r0["grad_rel_l2"] <= TRAIN_GRAD_REL_L2_BOUND):
+            fail(f"p_{name}: loss rel {loss_rel:.4g}, grad rel L2 {r0['grad_rel_l2']:.4g} "
+                 "against one card")
+        for r, res in enumerate(ranks):
+            idle = [k for k in TRAIN_KERNELS if res["launches"][k] == 0]
+            if idle or any(res["f32_launches"].values()):
+                fail(f"p_{name} rank {r}: kernels not launched {idle}, f32 "
+                     f"{res['f32_launches']}")
+        emit(phase="cli_parallel", run=f"p_{name}", loss_rel=loss_rel,
+             grad_rel_l2=r0["grad_rel_l2"], loss_bound=TRAIN_LOSS_REL_BOUND,
+             grad_bound=TRAIN_GRAD_REL_L2_BOUND, card=card)
+        by_run[f"p_{name}"] = {k: sum(res["launches"][k] for res in ranks)
+                               for k in TRAIN_KERNELS}
+    return by_run
+
+
+def write_striped_test_stage(root) -> list:
+    """A synthetic RE10K test stage of two chunks, one scene of TRAIN_FRAMES
+    frames each (the loader stripes the test stage by chunk; the baseline's
+    test sampler needs that many frames between the context views)."""
+    from mvldm_tpu_torch.data.chunk_reader import save_chunk
+
+    stage = root / "test"
+    stage.mkdir(parents=True)
+    keys = [f"scenetest{s:04d}" for s in range(2)]
+    frames = [make_frame(i) for i in range(TRAIN_FRAMES + 100)]
+    for s, key in enumerate(keys):
+        save_chunk([{"key": key, "cameras": make_cameras(TRAIN_FRAMES),
+                     "images": frames[100 * s:100 * s + TRAIN_FRAMES]}],
+                   stage / f"{s:06d}.torch")
+    (stage / "index.json").write_text(json.dumps({k: f"{s:06d}.torch"
+                                                  for s, k in enumerate(keys)}))
+    return keys
+
+
+def parallel_test_mode(card: str) -> dict:
+    """(q) ``scripts.main mode=test +experiment=baseline`` (anchored, 4
+    frames a scene) on two ranks sharing the card over gloo: each rank
+    samples its stripe, the ranks' scenes are disjoint and together every
+    scene of the stage, each directory holds its frames and exports."""
+    import shutil
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent / "build" / "cli_parallel" / "q_data"
+    shutil.rmtree(root, ignore_errors=True)
+    keys = write_striped_test_stage(root / "data")
+    out = root / "out"
+    argv = ["+experiment=baseline", "mode=test", f"dataset.root={root / 'data'}",
+            f"output_dir={out}", "test.sampling_mode=anchored", "test.limit_frames=4",
+            "trainer.limit_test_batches=null"]
+    ranks = launch_ranks(dict(kind="cli", argv=argv), "q_test")
+    sampled = [sorted(line.split()[2].rstrip(";") for line in res["log"].splitlines()
+                      if line.startswith("scene = ")) for res in ranks]
+    on_disk = sorted(p.name for p in (out / "video").iterdir())
+    for r, res in enumerate(ranks):
+        emit(phase="cli_parallel", run="q_test", rank=r, argv=" ".join(argv), scenes=sampled[r],
+             **{k: v for k, v in res.items() if k != "log"}, card=card)
+    flat = sum(sampled, [])
+    if sorted(flat) != sorted(keys) or len(set(flat)) != len(flat) or on_disk != sorted(keys):
+        fail(f"q_test: ranks sampled {sampled}, directories {on_disk}, stage {keys}")
+    for scene in on_disk:
+        d = out / "video" / scene
+        colors = sorted(x.name for x in (d / "color").glob("*.png"))
+        exports = [n for n in ("sampled.gif", "sampled_fps_25.mp4", "sampled_fps_10.mp4")
+                   if (d / n).is_file()]
+        if len(colors) != 4 or len(exports) != 3:
+            fail(f"q_test {scene}: color/ {colors}, exports {exports}")
+    shutil.rmtree(root)
+    return {"q_test": {k: sum(res["launches"][k] for res in ranks) for k in TRAIN_KERNELS}}
+
+
+def tools_phase(card: str, kernels, f32_kernels) -> dict:
+    """(r) ``utils.ckpt_manifest``'s census of the baseline equal to the
+    committed manifest; ``scripts.verify_parity`` smoke at
+    ``+experiment=baseline`` (f32, TF32 off, 25 DDIM steps, 2 context + 3
+    target views at 256 px) writes a finite fixture, and fixture mode on it
+    passes. Returns the f32 launches of the two runs."""
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+
+    from mvldm_tpu_torch.scripts import verify_parity
+    from mvldm_tpu_torch.utils import ckpt_manifest
+
+    repo = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    census = ckpt_manifest.generate_manifest()
+    committed = json.loads((repo / ckpt_manifest.DEFAULT_MANIFEST).read_text())
+    same = json.loads(json.dumps(census)) == committed
+    emit(phase="cli_parallel", run="r_ckpt_manifest", seconds=time.perf_counter() - t0,
+         required=len(census["required"]), ignored=len(census["ignored"]),
+         equals_committed=same, card=card)
+    if not same:
+        fail("ckpt_manifest: the census differs from assets/mvldm_1.0_manifest.json")
+    out = repo / "build" / "cli_parallel" / "r_parity"
+    shutil.rmtree(out, ignore_errors=True)
+    smoke = run_counted(kernels, f32_kernels, verify_parity.main, [f"out={out}"])
+    fx = np.load(out / "torch_fixture.npz")
+    finite = all(np.isfinite(fx[k]).all() for k in fx.files)
+    reports = []
+    fixture = run_counted(kernels, f32_kernels,
+                          lambda argv: reports.append(verify_parity.main(argv)),
+                          [f"out={out}", f"fixtures={out / 'torch_fixture.npz'}"])
+    report = reports[0]
+    emit(phase="cli_parallel", run="r_verify_parity", smoke=smoke, fixture=fixture,
+         finite=bool(finite), shapes={k: list(fx[k].shape) for k in fx.files},
+         worst_rel_max=report["worst_rel_max"], passed=report["pass"], card=card)
+    shutil.rmtree(out)
+    if not finite or not report["pass"]:
+        fail(f"verify_parity: finite {finite}, report {report}")
+    if any(smoke["launches"].values()) or any(fixture["launches"].values()):
+        fail("verify_parity: bf16 kernels launched in the f32 harness")
+    return {k: smoke["f32_launches"][k] + fixture["f32_launches"][k]
+            for k in smoke["f32_launches"]}
+
+
+def cli_parallel_phase(card: str, kernels, f32_kernels):
+    """(o)-(r): see :func:`parallel_world1_runs`, :func:`parallel_two_rank_steps`,
+    :func:`parallel_test_mode` and :func:`tools_phase`. Returns the bf16
+    launches of each run (the ranks' summed) and the f32 launches of (r)."""
+    import shutil
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent / "build" / "cli_train_smoke"
+    runs = root / "parallel_runs"
+    shutil.rmtree(runs, ignore_errors=True)
+    t0 = time.perf_counter()
+    by_run = parallel_world1_runs(card, root / "data", runs, kernels, f32_kernels)
+    by_run.update(parallel_two_rank_steps(card))
+    by_run.update(parallel_test_mode(card))
+    f32 = tools_phase(card, kernels, f32_kernels)
+    emit(phase="cli_parallel", run="total", seconds=time.perf_counter() - t0, card=card)
+    return by_run, f32
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -2202,6 +2669,7 @@ def main() -> int:
     cli_train_launches = cli_train_phase(card, forward + backward, F32_KERNELS)
     variant_launches, precompute_f32 = cli_variants_phase(card, forward + backward, F32_KERNELS)
     eval_f32 = eval_phase(card, forward + backward, F32_KERNELS)
+    parallel_launches, parity_f32 = cli_parallel_phase(card, forward + backward, F32_KERNELS)
 
     f32_meta = {
         "flash_attention_f32": "mvldm_tpu/ops/attention.py:76",
@@ -2229,12 +2697,15 @@ def main() -> int:
         return {"sampling": sampling_launches.get(name, 0), "training": train_launches[name],
                 **{f"cli_{run}": counts.get(name, 0) for run, counts in cli_launches.items()},
                 **{f"cli_{run}": counts[name] for run, counts in cli_train_launches.items()},
-                **{f"cli_{run}": counts[name] for run, counts in variant_launches.items()}}
+                **{f"cli_{run}": counts[name] for run, counts in variant_launches.items()},
+                **{f"cli_parallel_{run}": counts.get(name, 0)
+                   for run, counts in parallel_launches.items()}}
 
     def f32_paths(name: str) -> dict:
         return {"f32_forward": f32_forward_launches[name],
                 "f32_train_step": f32_step_launches[name],
-                "precompute_latents": precompute_f32[name], "eval": eval_f32[name]}
+                "precompute_latents": precompute_f32[name], "eval": eval_f32[name],
+                "verify_parity": parity_f32[name]}
 
     emit(kernels=[
         dict(name=name, route="cuda", source=meta[name][0], replaces=meta[name][1],
@@ -2263,4 +2734,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-job"]:
+        sys.exit(rank_job_main(sys.argv[2]))
     sys.exit(main())

@@ -5,8 +5,9 @@ In place of the reference's ``DataModule``/``DataLoader`` stack
 (``src/dataset/data_module.py:58-140``; 16 worker processes per rank), one
 process: a background thread iterates the dataset, collates fixed-shape
 numpy batches, and keeps a bounded queue ahead of the device. The process
-index and count come from ``torch.distributed`` when it is initialised,
-else (0, 1).
+index and count are the ``DataModule``'s (a training mesh passes its data
+rank and data ranks), else those of ``torch.distributed`` when it is
+initialised, else (0, 1).
 """
 
 from __future__ import annotations
@@ -185,7 +186,14 @@ class PrefetchIterator:
 
 
 class DataModule:
-    """Builds per-stage batched iterators (reference ``DataModule:58-140``)."""
+    """Builds per-stage batched iterators (reference ``DataModule:58-140``).
+
+    ``process``: (index, count) of this process's streams, by default
+    :func:`process_index_and_count`; a training mesh passes (data rank, data
+    ranks), so that the model ranks of one data rank read the same batches.
+    ``seed``: the seed of a stage whose config has none (``seed: null``);
+    ranks that must read the same stream pass one seed (drawn once and
+    shared), where ``None`` leaves each process its own OS entropy."""
 
     def __init__(
         self,
@@ -193,18 +201,25 @@ class DataModule:
         view_sampler_cfg,
         data_loader_cfg: DataLoaderCfg,
         step_tracker: Optional[StepTracker] = None,
+        process: Optional[tuple[int, int]] = None,
+        seed: Optional[int] = None,
     ):
         self.dataset_cfg = dataset_cfg
         self.view_sampler_cfg = view_sampler_cfg
         self.data_loader_cfg = data_loader_cfg
         self.step_tracker = step_tracker
+        self.process, self.seed = process, seed
+
+    def _seed(self, seed: Optional[int]) -> Optional[int]:
+        return self.seed if seed is None else seed
 
     def _dataset(self, stage: Stage, seed: Optional[int]) -> DatasetRE10k:
         # Multi-host: each process draws an independent stream for train
         # (host-local data feeding, SURVEY.md §2.4) and stripes test chunks
         # across processes (the reference stripes across dataloader workers,
         # dataset_re10k.py:87-92).
-        process, num_processes = process_index_and_count()
+        process, num_processes = self.process or process_index_and_count()
+        seed = self._seed(seed)
         rng = np.random.default_rng(
             seed if seed is None else seed + process
         )
@@ -282,7 +297,8 @@ class DataModule:
 
         def worker(widx: int):
             q = qs[widx]
-            seed = None if cfg.seed is None else cfg.seed + 7919 * widx
+            base = self._seed(cfg.seed)
+            seed = None if base is None else base + 7919 * widx
             try:
                 while not stop.is_set():
                     for example in self._dataset("train", seed):

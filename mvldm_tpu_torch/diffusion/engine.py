@@ -19,7 +19,7 @@ unconditional row's context views masked out of the joint attention), and
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -234,12 +234,16 @@ class DiffusionEngine:
 
     def training_loss(self, batch: Batch, num_context_views: int,
                       draws: Optional[TrainDraws] = None,
-                      generator: Optional[torch.Generator] = None
+                      generator: Optional[torch.Generator] = None,
+                      count_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Noise-prediction MSE over the target views, in f32 (the JAX
         ``training_loss``). The first ``num_context_views`` views are the
         nominal context, of which a random non-empty subset stays context;
-        ``draws`` (or ``generator``) supplies every random draw."""
+        ``draws`` (or ``generator``) supplies every random draw. Under data
+        parallelism ``count_reduce`` sums the target-view count over the
+        data ranks, so each rank's loss is its share of the global batch's
+        mean, as the JAX loss over a data-sharded batch is."""
         cfg = self.cfg
         dev = self.device
         b, v = batch.extrinsics.shape[:2]
@@ -293,7 +297,10 @@ class DiffusionEngine:
         pred = self.unet(inputs, timesteps, view_mask=view_mask)
 
         per_view = ((pred.float() - noise.float()) ** 2).mean(dim=(2, 3, 4))
-        loss = (per_view * is_target).sum() / is_target.sum().clamp_min(1)
+        count = is_target.sum()
+        if count_reduce is not None:
+            count = count_reduce(count)
+        loss = (per_view * is_target).sum() / count.clamp_min(1)
         return loss, {"loss/diffusion": loss}
 
     # ------------------------------------------------------------- sampling

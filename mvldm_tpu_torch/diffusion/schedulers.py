@@ -171,8 +171,14 @@ class DDIMScheduler(_Schedule):
 
 
     def step(self, model_output: torch.Tensor, timestep: int,
-             sample: torch.Tensor) -> torch.Tensor:
-        """One deterministic (eta = 0) reverse DDIM step; returns prev_sample."""
+             sample: torch.Tensor, eta: float = 0.0,
+             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One reverse DDIM step; returns prev_sample. With ``eta > 0`` the
+        step is stochastic (the JAX ``step``, ``schedulers.py:256-272``):
+        std = eta * sqrt((1 - a_prev) / (1 - a_t) * (1 - a_t / a_prev)) in
+        f32, the direction shrinks to sqrt(1 - a_prev - std^2), and std *
+        ``noise`` is added; ``noise`` (N(0, 1), the sample's shape) is then
+        required."""
         t = int(timestep)
         prev_t = t - self.num_train_timesteps // self.num_inference_steps
         table = self.alphas_cumprod
@@ -183,6 +189,14 @@ class DDIMScheduler(_Schedule):
                                                self.prediction_type)
         if self.clip_sample:
             pred_x0 = pred_x0.clamp(-self.clip_sample_range, self.clip_sample_range)
+        if eta > 0.0:
+            if noise is None:
+                raise ValueError("eta > 0 requires noise")
+            variance = (1.0 - a_prev) / (1.0 - a_t) * (1.0 - a_t / a_prev)
+            std = eta * torch.sqrt(variance)
+            direction = float(torch.sqrt(1.0 - a_prev - std ** 2)) * pred_eps
+            return (float(torch.sqrt(a_prev)) * pred_x0 + direction
+                    + float(std) * noise.to(pred_x0.dtype))
         direction = float(torch.sqrt(1.0 - a_prev)) * pred_eps
         return float(torch.sqrt(a_prev)) * pred_x0 + direction
 

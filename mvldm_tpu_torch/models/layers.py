@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from ..ops.attention import attention
 from ..ops.fused_attn import fused_ln_self_attention, use_fused
 from ..ops.fused_ff import fused_ln_geglu_ff, ln_geglu_ff_decomposed
+from ..parallel.tp import get_model_mesh, view_parallel
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default, used by every transformer norm
 
@@ -181,6 +182,16 @@ def self_attn_block(x: torch.Tensor, norm: nn.LayerNorm, attn: CrossAttention
     """``x + Attn(LayerNorm(x))`` over (b, l, c) tokens: the fused kernel at
     the JAX package's channel gate, else the decomposed path (separate
     projections around the attention dispatcher)."""
+    # Under trainer.strategy=data_model each model rank takes a share of the
+    # frames (parallel/tp.view_parallel); a direct call otherwise.
+    mesh = get_model_mesh()
+    if mesh is not None:
+        return view_parallel(lambda x: _self_attn_block(x, norm, attn), x, mesh)
+    return _self_attn_block(x, norm, attn)
+
+
+def _self_attn_block(x: torch.Tensor, norm: nn.LayerNorm, attn: CrossAttention
+                     ) -> torch.Tensor:
     c = x.shape[-1]
     wo = attn.to_out[0]
     if use_fused(c, x.dtype):
@@ -197,6 +208,13 @@ def ff_block(x: torch.Tensor, norm: nn.LayerNorm, ff: FeedForward
     """``x + FeedForward(LayerNorm(x))`` through the fused kernel at the JAX
     package's channel gate, else the decomposed path (the JAX ``_ff_jnp``,
     see ``ops/fused_ff.ln_geglu_ff_decomposed``)."""
+    mesh = get_model_mesh()
+    if mesh is not None:  # as in self_attn_block
+        return view_parallel(lambda x: _ff_block(x, norm, ff), x, mesh)
+    return _ff_block(x, norm, ff)
+
+
+def _ff_block(x: torch.Tensor, norm: nn.LayerNorm, ff: FeedForward) -> torch.Tensor:
     proj, out = ff.net[0].proj, ff.net[2]
     fn = fused_ln_geglu_ff if use_fused(x.shape[-1], x.dtype) else ln_geglu_ff_decomposed
     return fn(x, norm.weight, norm.bias, proj.weight.t(), proj.bias, out.weight.t(),

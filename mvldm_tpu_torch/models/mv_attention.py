@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.attention import NEG_INF
+from ..parallel import tp
 from .layers import (
     LN_EPS,
     CrossAttention,
@@ -68,7 +69,14 @@ class BasicTransformerBlock3D(nn.Module):
         joint = x.reshape(bv // num_views, num_views * l, c)
         key_bias = None if view_mask is None else view_key_bias(view_mask, l)
         h = layer_norm(joint, self.norm1)
-        joint = joint + self.attn1(h, key_bias=key_bias)
+        # Tensor parallelism (trainer.strategy=data_model): the heads split
+        # over the published model ranks, see parallel/tp.py. Direct
+        # otherwise.
+        mesh = tp.get_model_mesh()
+        if tp.use_head_sharding(self.attn1.num_heads, mesh):
+            joint = joint + tp.head_sharded_attention(self.attn1, h, key_bias, mesh)
+        else:
+            joint = joint + self.attn1(h, key_bias=key_bias)
         x = joint.reshape(bv, l, c)
         x = self_attn_block(x, self.norm2, self.attn2)
         return ff_block(x, self.norm3, self.ff)

@@ -9,9 +9,22 @@ in-training validation hook), ``val`` (one validation sampling round from
 the saved state, comparison grids written to ``<output_dir>/val``),
 ``test`` (video sampling over the test set, anchored or autoregressive,
 with skip-existing idempotency and GIF/MP4 export; reference
-``test_step:1057`` + ``on_test_end:1069``). Every mode runs on one card,
-whatever ``trainer.strategy`` says; :func:`main` exits non-zero without
-one.
+``test_step:1057`` + ``on_test_end:1069``). :func:`main` exits non-zero
+without a card.
+
+Several cards: one process per card, started with the
+``MVLDM_COORDINATOR`` / ``MVLDM_NUM_PROCESSES`` / ``MVLDM_PROCESS_ID``
+triplet, or by ``torchrun`` with ``MVLDM_DISTRIBUTED=1``
+(``parallel/distributed.py``). ``mode=train`` then runs
+``trainer.strategy`` (``data_parallel``, ``data_parallel_zero1``,
+``data_parallel_fsdp``, ``data_model`` with ``trainer.num_model``; see
+``training/strategy.py``) whenever a process group was asked for, world 1
+included: there every collective is an identity in value, so one card
+drives the strategy's collectives. With no such variable it runs on one
+card, as before. ``mode=test`` stripes the test scenes over the ranks (the
+loader's process striping) and each rank samples and exports its own: the
+port's counterpart of the JAX CLI's chip-per-scene split of a scene batch
+over one process's local devices.
 """
 
 from __future__ import annotations
@@ -23,6 +36,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..builder import build_engine, load_pretrained
 from ..config import RootCfg, compose, load_typed_root_config, set_cfg
@@ -30,8 +44,18 @@ from ..data.loader import DataModule
 from ..data.view_samplers import StepTracker
 from ..diffusion.engine import DiffusionEngine
 from ..diffusion.video_sampling import SceneViews, VideoSampler
+from ..parallel.distributed import (
+    is_main_process,
+    maybe_initialize_distributed,
+    rank_and_world,
+    shared_seed,
+    shutdown_distributed,
+    sync_processes,
+)
+from ..parallel.mesh import make_mesh
 from ..training.checkpoint import CheckpointManager
 from ..training.optim import SetToZero, build_lr_schedule, build_optimizer
+from ..training.strategy import STRATEGIES, Strategy
 from ..training.trainer import Trainer, TrainState, load_params
 from ..utils.image_io import load_image, save_gif, save_image, save_video
 from ..visualization import add_label, hcat, vcat
@@ -58,8 +82,11 @@ def dispatch_generator(device: torch.device, seed: int, *folds: int) -> torch.Ge
     return torch.Generator(device).manual_seed(int(state))
 
 
-def build_data_module(cfg: RootCfg, step_tracker: StepTracker) -> DataModule:
-    return DataModule(cfg.dataset, cfg.dataset.view_sampler, cfg.data_loader, step_tracker)
+def build_data_module(cfg: RootCfg, step_tracker: StepTracker,
+                      process: Optional[tuple] = None, seed: Optional[int] = None) -> DataModule:
+    """The run's ``DataModule``; ``process`` and ``seed`` as it takes them."""
+    return DataModule(cfg.dataset, cfg.dataset.view_sampler, cfg.data_loader, step_tracker,
+                      process=process, seed=seed)
 
 
 def scene_views_from_batch(batch_np, role: str, i: int = 0) -> SceneViews:
@@ -73,34 +100,60 @@ def scene_views_from_batch(batch_np, role: str, i: int = 0) -> SceneViews:
 def base_lr(cfg: RootCfg) -> float:
     """``optimizer.lr``, times the effective batch (accumulation x devices x
     batch) under ``optimizer.scale_lr`` (reference
-    ``diffusion_wrapper.py:156-167``); a run here has one device."""
+    ``diffusion_wrapper.py:156-167``); the devices are the process group's
+    ranks, one card each (the JAX ``jax.device_count()``)."""
     lr = cfg.optimizer.lr
     if cfg.optimizer.scale_lr:
-        devices = 1
+        devices = rank_and_world()[1]
         lr = lr * (cfg.trainer.accumulate_grad_batches * devices
                    * cfg.data_loader.train.batch_size)
     return lr
 
 
+def build_strategy(cfg: RootCfg, engine: DiffusionEngine, tx) -> Optional[Strategy]:
+    """``trainer.strategy``'s plan over the process group (the JAX
+    ``run_train``'s choice, ``scripts/main.py:84-106``), or None without a
+    process group. With one, any other strategy name is refused."""
+    if not dist.is_initialized():
+        return None
+    name = cfg.trainer.strategy
+    if name not in STRATEGIES:
+        raise ValueError(f"trainer.strategy={name!r} cannot run on a process group; "
+                         f"expected one of {STRATEGIES}")
+    mesh = make_mesh(num_model=cfg.trainer.num_model if name == "data_model" else 1)
+    if is_main_process():
+        print(f"strategy {name}: {mesh.num_data} (data) x {mesh.num_model} (model) ranks")
+    return Strategy(name, mesh, engine.unet, tx)
+
+
 def run_train(cfg: RootCfg, device=None) -> TrainState:
     """Train on ``device`` ("cuda" when None), resuming from the newest
-    checkpoint under ``<output_dir>/checkpoints``. One device whatever
-    ``trainer.strategy`` says. ``freeze.autoencoder`` is structural (the VAE
-    is never optimized); ``freeze.denoiser`` zeroes every update."""
+    checkpoint under ``<output_dir>/checkpoints``; under a process group,
+    on each rank with ``trainer.strategy`` (:func:`build_strategy`).
+    ``freeze.autoencoder`` is structural (the VAE is never optimized);
+    ``freeze.denoiser`` zeroes every update."""
     device = resolve_device(device)
     seed = cfg.seed if cfg.seed is not None else 0
     engine = build_engine(cfg, device)
     engine.vae.requires_grad_(False)
     load_pretrained(cfg, engine)
 
-    step_tracker = StepTracker(cfg.train.step_offset)
-    dm = build_data_module(cfg, step_tracker)
     tx = build_optimizer(cfg.optimizer, build_lr_schedule(base_lr(cfg), cfg.optimizer.scheduler),
                          gradient_clip_val=cfg.trainer.gradient_clip_val,
                          accumulate_grad_batches=cfg.trainer.accumulate_grad_batches)
     if cfg.freeze.denoiser:
         print("freeze.denoiser=true: denoiser updates disabled")
         tx = SetToZero()
+    strategy = build_strategy(cfg, engine, tx)
+    step_tracker = StepTracker(cfg.train.step_offset)
+    if strategy is None:
+        dm = build_data_module(cfg, step_tracker)
+    else:
+        # One stream a data rank: its model ranks read the same batches,
+        # from one shared seed where the config gives none.
+        mesh = strategy.mesh
+        dm = build_data_module(cfg, step_tracker, process=(mesh.data_rank, mesh.num_data),
+                               seed=shared_seed(device))
     run_dir = Path(cfg.output_dir)
     run_dir.mkdir(parents=True, exist_ok=True)
 
@@ -113,7 +166,7 @@ def run_train(cfg: RootCfg, device=None) -> TrainState:
                       save_top_k=cfg.checkpointing.save_top_k, use_ema=cfg.model.ema,
                       step_tracker=step_tracker, val_hook=val_hook,
                       val_check_interval=cfg.trainer.val_check_interval,
-                      task_steps=cfg.trainer.task_steps)
+                      task_steps=cfg.trainer.task_steps, strategy=strategy)
     state = trainer.maybe_restore(trainer.init_state())
     return trainer.fit(state, seed)
 
@@ -195,6 +248,8 @@ def run_val(cfg: RootCfg, device=None) -> None:
     from the saved state: targets sampled from one context view, grids
     written to ``<output_dir>/val``."""
     device = resolve_device(device)
+    if not is_main_process():
+        return  # one rank renders; the others have nothing to write
     seed = cfg.seed if cfg.seed is not None else 0
     engine = build_engine(cfg, device)
     _load_eval_params(cfg, engine)
@@ -254,6 +309,7 @@ def _run_test_scene_batched(cfg: RootCfg, sampler: VideoSampler, dm: DataModule,
 
     dispatch_many = (sampler.dispatch_anchored_many if mode == "anchored"
                      else sampler.dispatch_autoregressive_many)
+    rank = rank_and_world()[0]
     buckets: dict = {}  # target count -> [(scene_dir, ctx, tgt)]
     in_flight = None
     fold = 0
@@ -266,7 +322,8 @@ def _run_test_scene_batched(cfg: RootCfg, sampler: VideoSampler, dm: DataModule,
         size = min(size, scene_batch)
         padded = bucket + [bucket[-1]] * (size - len(bucket))
         pending = dispatch_many([(c, t) for _, c, t in padded],
-                                dispatch_generator(device, seed, fold),
+                                dispatch_generator(device, seed, fold,
+                                                   *((rank,) if rank else ())),
                                 limit_frames=cfg.test.limit_frames)
         fold += 1
         if in_flight is not None:
@@ -310,7 +367,10 @@ def _run_test_scene_batched(cfg: RootCfg, sampler: VideoSampler, dm: DataModule,
 
 def run_test(cfg: RootCfg, device=None) -> None:
     """Video sampling over the test set (reference ``test_step`` +
-    ``on_test_end``) on ``device`` ("cuda" when None)."""
+    ``on_test_end``) on ``device`` ("cuda" when None). Under a process
+    group each rank samples its stripe of the scenes (a dispatch's
+    generator folds in a nonzero rank), the ranks meet at a barrier, and
+    rank r exports every r-th scene directory."""
     device = resolve_device(device)
     seed = cfg.seed if cfg.seed is not None else 0
     engine = build_engine(cfg, device)
@@ -327,7 +387,9 @@ def run_test(cfg: RootCfg, device=None) -> None:
                             max(1, cfg.test.scene_batch), cfg.trainer.limit_test_batches, mode)
 
     # GIF / MP4 export per scene (reference on_test_end:1069-1088).
-    for scene_dir in sorted(output_dir.iterdir()):
+    sync_processes("test_export")
+    rank, world = rank_and_world()
+    for scene_dir in sorted(output_dir.iterdir())[rank::world]:
         color = scene_dir / "color"
         if not color.is_dir():
             continue
@@ -340,22 +402,33 @@ def run_test(cfg: RootCfg, device=None) -> None:
 
 
 def main(argv=None, device=None) -> None:
-    """``device`` is "cuda" when None; the tests pass "cpu"."""
+    """``device`` is "cuda" when None; the tests pass "cpu". The process
+    group that the environment asks for (``parallel/distributed.py``) is
+    started first and destroyed at the end."""
     device = resolve_device(device)
-    cfg_dict = compose(list(argv if argv is not None else sys.argv[1:]))
-    set_cfg(cfg_dict)
-    cfg = load_typed_root_config(cfg_dict)
-    if cfg.seed is not None:
-        np.random.seed(cfg.seed)
-    print(f"mode={cfg.mode} output_dir={cfg.output_dir}")
-    if cfg.mode == "train":
-        run_train(cfg, device)
-    elif cfg.mode == "val":
-        run_val(cfg, device)
-    elif cfg.mode == "test":
-        run_test(cfg, device)
-    else:
-        raise ValueError(f"Unknown mode: {cfg.mode}")
+    started = not dist.is_initialized() and maybe_initialize_distributed(device=device)
+    try:
+        if started:
+            rank, world = rank_and_world()
+            print(f"distributed: process {rank}/{world} ({dist.get_backend()}), "
+                  f"device {device if device.type != 'cuda' else torch.cuda.current_device()}")
+        cfg_dict = compose(list(argv if argv is not None else sys.argv[1:]))
+        set_cfg(cfg_dict)
+        cfg = load_typed_root_config(cfg_dict)
+        if cfg.seed is not None:
+            np.random.seed(cfg.seed)
+        print(f"mode={cfg.mode} output_dir={cfg.output_dir}")
+        if cfg.mode == "train":
+            run_train(cfg, device)
+        elif cfg.mode == "val":
+            run_val(cfg, device)
+        elif cfg.mode == "test":
+            run_test(cfg, device)
+        else:
+            raise ValueError(f"Unknown mode: {cfg.mode}")
+    finally:
+        if started:
+            shutdown_distributed()
 
 
 if __name__ == "__main__":

@@ -8,7 +8,10 @@ place, so a crash mid-write leaves only a directory that :meth:`all_steps`
 skips. A ``latest`` file names the newest saved step; the directory scan,
 not the pointer, decides :meth:`latest_step`. Only the newest
 ``save_top_k`` steps are kept. Orbax's format (the JAX package's) is not
-carried over: the two packages cannot read each other's checkpoints.
+carried over: the two packages cannot read each other's checkpoints. Under
+a multi-rank strategy the trainer gathers the whole state and rank 0 alone
+calls :meth:`save`, so a checkpoint restores under any strategy and on one
+card.
 """
 
 from __future__ import annotations
@@ -61,9 +64,9 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, map_location=None) -> Dict[str, Any]:
+    def restore(self, step: int, map_location=None, mmap: bool = False) -> Dict[str, Any]:
         return torch.load(self._step_dir(step) / "state.pt",
-                          map_location=map_location, weights_only=True)
+                          map_location=map_location, mmap=mmap, weights_only=True)
 
     def restore_partial(self, step: int, keys) -> Dict[str, Any]:
         """Only ``keys`` of the saved state (e.g. ``params`` or

@@ -168,7 +168,13 @@ class Optimizer:
     on the accumulation micro-steps). ``grads`` may be bf16: each group is
     cast to f32 as it is used. With ``nu_dtype`` the moments are stored by
     stochastic rounding; ``apply``'s ``noise`` (name -> (mu, nu) draws of
-    :func:`rounding_noise`'s kind) then replaces the seeded draws."""
+    :func:`rounding_noise`'s kind) then replaces the seeded draws.
+
+    A multi-rank strategy (``training/strategy.py``) whose ranks hold
+    slices of the state passes ``apply`` two callbacks: ``norm_fn(grads)``,
+    the whole gradient's norm from this rank's slices (for the clip), and
+    ``noise_fn(name, like, count, leaf)``, the slice's rounding draws. One
+    card passes neither."""
 
     def __init__(self, name: str, lr_schedule: Callable[[int], float], *,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -217,7 +223,8 @@ class Optimizer:
 
     def apply(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
               state: Dict[str, Any], noise: Optional[Dict[str, Tuple[torch.Tensor,
-                                                                     torch.Tensor]]] = None
+                                                                     torch.Tensor]]] = None,
+              *, norm_fn: Optional[Callable] = None, noise_fn: Optional[Callable] = None
               ) -> bool:
         chunks = _chunks(params)
         if self.every_k > 1:
@@ -233,7 +240,8 @@ class Optimizer:
             grads = state["acc"]
         clip_norm = None
         if self.clip is not None:
-            norm = global_norm(list(grads.values()))
+            norm = (global_norm(list(grads.values())) if norm_fn is None
+                    else norm_fn(grads))
             if not norm < self.clip:
                 clip_norm = norm
         count = state["count"]
@@ -253,7 +261,7 @@ class Optimizer:
                 torch._foreach_sub_(p, self._adafactor(names, g, p, state, count, lr))
                 continue
             elif self.nu_dtype is not None:
-                upd = self._adam_lp(names, g, p, state, count + 1, noise)
+                upd = self._adam_lp(names, g, p, state, count + 1, noise, noise_fn)
             else:
                 upd = self._adam(g, p, [state["mu"][k] for k in names],
                                  [state["nu"][k] for k in names], count + 1)
@@ -282,7 +290,8 @@ class Optimizer:
         torch._foreach_copy_(nu, nu32)
         return upd
 
-    def _adam_lp(self, names: List[str], g, p, state, count: int, noise) -> List[torch.Tensor]:
+    def _adam_lp(self, names: List[str], g, p, state, count: int, noise,
+                 noise_fn: Optional[Callable]) -> List[torch.Tensor]:
         """``scale_by_adam_lp`` then the decay: f32 arithmetic on the stored
         moments, the moments stored by stochastic rounding. Leaf ``i`` is
         the parameter's rank in sorted name order (the JAX tree's order for
@@ -302,8 +311,12 @@ class Optimizer:
             upd = torch._foreach_add(upd, torch._foreach_mul(p, self.weight_decay))
         leaf = {k: i for i, k in enumerate(sorted(state["nu"]))}
         for k, m, n, m32, n32 in zip(names, mu, nu, mu32, nu32):
-            draws = (noise[k] if noise is not None
-                     else rounding_noise(m32.shape, m32.device, count, leaf[k]))
+            if noise is not None:
+                draws = noise[k]
+            elif noise_fn is not None:
+                draws = noise_fn(k, m32, count, leaf[k])
+            else:
+                draws = rounding_noise(m32.shape, m32.device, count, leaf[k])
             for stored, exact, bits in ((m, m32, draws[0]), (n, n32, draws[1])):
                 stored.copy_(stochastic_round(exact, bits) if stored.dtype == torch.bfloat16
                              else exact)
@@ -394,7 +407,7 @@ class SetToZero:
     def init(self, params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         return {}
 
-    def apply(self, params, grads, state) -> bool:
+    def apply(self, params, grads, state, noise=None, **callbacks) -> bool:
         return True
 
 

@@ -1,6 +1,7 @@
 """Train step and host loop (counterpart of
-``mvldm_tpu/training/trainer.py``), on one device; the mesh strategies are
-not ported yet.
+``mvldm_tpu/training/trainer.py``), on one card or, under a
+``training/strategy.Strategy``, on each rank of a process group (one
+process per card; the JAX mesh plans).
 
 Mixed precision, as the JAX package trains (f32 parameters, bf16
 compute): the UNet module runs in its own dtype, bf16 on the card, the same
@@ -24,14 +25,18 @@ import torch
 import torch.nn as nn
 
 from ..diffusion.engine import Batch, DiffusionEngine, TrainDraws
+from ..parallel.distributed import is_main_process, sync_processes
 from ..utils.profiling import start_trace, stop_trace
 from .checkpoint import CheckpointManager
 from .optim import Optimizer, ema_update, global_norm
+from .strategy import Strategy, step_seed
 
 
 @dataclass
 class TrainState:
-    params: Dict[str, torch.Tensor]              # f32 masters, by UNet parameter name
+    # f32 masters, by UNet parameter name (under a strategy, in its stored
+    # form: slices of the leaves it splits, see Strategy.store)
+    params: Dict[str, torch.Tensor]
     opt_state: Dict[str, Any]
     ema_params: Optional[Dict[str, torch.Tensor]]  # None when EMA is off
     step: int
@@ -76,31 +81,47 @@ def batch_from_arrays(context_img, target_img, context_extr, target_extr,
 
 
 def make_train_step(engine: DiffusionEngine, tx: Optimizer, num_context_views: int,
-                    ema_decay: float = 0.995) -> Callable:
+                    ema_decay: float = 0.995, strategy: Optional[Strategy] = None
+                    ) -> Callable:
     """``step(state, batch, draws=None, generator=None) -> (state, metrics)``:
     loss and gradients of the engine's UNet, one optimizer apply on the
     masters, the EMA only on steps that applied an update. ``state`` is
-    updated in place and returned."""
+    updated in place and returned. Under ``strategy`` the batch and draws
+    are this rank's share; the loss, gradient norm and update are the
+    global batch's (see ``training/strategy.py``)."""
     named = [(n, p) for n, p in engine.unet.named_parameters() if p.requires_grad]
 
     def train_step(state: TrainState, batch: Batch, draws: Optional[TrainDraws] = None,
                    generator: Optional[torch.Generator] = None):
         for _, p in named:
             p.grad = None
-        loss, metrics = engine.training_loss(batch, num_context_views, draws, generator)
-        loss.backward()
-        # A parameter the loss does not reach (the SD text attention's q/k/v
-        # under the zero text context) has a zero gradient, as in JAX. The
-        # module's (bf16) gradients go to the optimizer as they are.
-        grads = {n: p.grad if p.grad is not None else torch.zeros_like(state.params[n])
-                 for n, p in named}
-        grad_norm = global_norm(list(grads.values()))
-        applied = tx.apply(state.params, grads, state.opt_state)
+        if strategy is None:
+            loss, metrics = engine.training_loss(batch, num_context_views, draws, generator)
+            loss.backward()
+            # A parameter the loss does not reach (the SD text attention's
+            # q/k/v under the zero text context) has a zero gradient, as in
+            # JAX. The module's (bf16) gradients go to the optimizer as they are.
+            grads = {n: p.grad if p.grad is not None else torch.zeros_like(state.params[n])
+                     for n, p in named}
+            grad_norm = global_norm(list(grads.values()))
+            applied = tx.apply(state.params, grads, state.opt_state)
+        else:
+            with strategy.compute():
+                loss, metrics = engine.training_loss(batch, num_context_views, draws,
+                                                     generator, strategy.count_reduce)
+                loss.backward()
+            grads = strategy.reduce_grads()
+            grad_norm = strategy.global_norm(grads)
+            metrics = strategy.reduce_metrics(metrics)
+            applied = strategy.apply(tx, state, grads)
         del grads
         for _, p in named:
             p.grad = None
         if applied:
-            load_params(engine.unet, state.params)
+            if strategy is None:
+                load_params(engine.unet, state.params)
+            else:
+                strategy.load_module(state.params)
             if state.ema_params is not None:
                 ema_update(state.ema_params, state.params, ema_decay)
         state.step += 1
@@ -120,43 +141,57 @@ class Trainer:
     ``<run_dir>/metrics.jsonl``, checkpoints every ``checkpoint_every``
     steps and at the last step, and calls ``val_hook(state, step)`` every
     ``val_check_interval`` steps. With ``MVLDM_PROFILE_DIR`` set, steps
-    start + 10 to start + 13 are traced there."""
+    start + 10 to start + 13 are traced there. Under ``strategy`` only rank
+    0 writes (``metrics.jsonl``, checkpoints, the validation hook's files),
+    with a barrier after each write; a checkpoint holds the whole state,
+    gathered first."""
 
     def __init__(self, engine: DiffusionEngine, tx: Optimizer, data_module, run_dir, *,
                  max_steps: int, num_context_views: int, checkpoint_every: int = 1000,
                  save_top_k: int = 1, log_every: int = 50, use_ema: bool = False,
                  step_tracker: Any = None, val_hook: Optional[Callable] = None,
                  val_check_interval: Optional[int] = None,
-                 task_steps: Optional[int] = None):
+                 task_steps: Optional[int] = None, strategy: Optional[Strategy] = None):
         self.engine, self.tx, self.data_module = engine, tx, data_module
         self.run_dir = Path(run_dir)
         self.max_steps, self.num_context_views = max_steps, num_context_views
         self.checkpoint_every, self.log_every = checkpoint_every, log_every
         self.use_ema, self.step_tracker = use_ema, step_tracker
         self.val_hook, self.val_check_interval = val_hook, val_check_interval
-        self.task_steps = task_steps
+        self.task_steps, self.strategy = task_steps, strategy
         self.ckpt = CheckpointManager(self.run_dir / "checkpoints", save_top_k)
         self.metrics_log = self.run_dir / "metrics.jsonl"
-        self._train_step = make_train_step(engine, tx, num_context_views)
+        self._train_step = make_train_step(engine, tx, num_context_views, strategy=strategy)
 
     def init_state(self) -> TrainState:
         params = master_params(self.engine.unet)
+        if self.strategy is not None:
+            params = self.strategy.store(params)
+        seen = params if self.strategy is None else self.strategy.optimizer_params(params)
         ema = {n: p.clone() for n, p in params.items()} if self.use_ema else None
-        return TrainState(params=params, opt_state=self.tx.init(params), ema_params=ema,
+        return TrainState(params=params, opt_state=self.tx.init(seen), ema_params=ema,
                           step=0)
 
     def maybe_restore(self, state: TrainState) -> TrainState:
         """Resume from the newest checkpoint, if any, into the module too.
         ``state`` is dropped before the saved one is read, so a caller that
         passes its only reference (``maybe_restore(init_state())``) holds
-        one state on the device, not two."""
+        one state on the device, not two. Under a strategy each rank reads
+        the whole saved state (memory-mapped) and keeps its slices."""
         latest = self.ckpt.latest_step()
         if latest is None:
             return state
-        print(f"Resuming from checkpoint at step {latest}")
+        if is_main_process():
+            print(f"Resuming from checkpoint at step {latest}")
         del state
-        state = TrainState(**self.ckpt.restore(latest, map_location=self.engine.device))
-        load_params(self.engine.unet, state.params)
+        if self.strategy is None:
+            state = TrainState(**self.ckpt.restore(latest, map_location=self.engine.device))
+            load_params(self.engine.unet, state.params)
+            return state
+        saved = self.ckpt.restore(latest, map_location="cpu", mmap=True)
+        state = TrainState(**self.strategy.from_whole(saved, self.engine.device))
+        del saved
+        self.strategy.load_module(state.params)
         return state
 
     def _batch(self, raw: Dict[str, Dict[str, Any]]) -> Batch:
@@ -168,6 +203,8 @@ class Trainer:
             ctx["latent_moments"] if lat else None, tgt["latent_moments"] if lat else None)
 
     def _log(self, step: int, metrics: Dict[str, Any]) -> None:
+        if not is_main_process():
+            return
         with open(self.metrics_log, "a") as f:
             f.write(json.dumps({"step": step, **{k: float(v) for k, v in metrics.items()}}) + "\n")
 
@@ -175,7 +212,8 @@ class Trainer:
         """Train from ``state.step`` to ``max_steps`` (at most ``task_steps``
         more). Step ``s`` draws its randomness from a generator seeded with
         (seed, s), the JAX ``fold_in(rng, step)``, so a resumed run repeats
-        the draws of an unbroken one. The train loader is infinite and
+        the draws of an unbroken one; under a strategy each data rank folds
+        its rank in (``strategy.step_seed``). The train loader is infinite and
         decodes in threads: it is closed, with a bounded wait, however the
         loop ends."""
         start = state.step
@@ -192,7 +230,8 @@ class Trainer:
                   ) -> TrainState:
         dev = self.engine.device
         t0, window = time.perf_counter(), 0
-        profile_dir = os.environ.get("MVLDM_PROFILE_DIR")
+        profile_dir = os.environ.get("MVLDM_PROFILE_DIR") if is_main_process() else None
+        data_rank = self.strategy.mesh.data_rank if self.strategy is not None else 0
         profile_window = (start + 10, start + 13)
         prof = None
         try:
@@ -208,7 +247,7 @@ class Trainer:
                     print(f"[profile] wrote train-step trace to {out}")
                 if self.step_tracker is not None:
                     self.step_tracker.set_step(step)
-                gen = torch.Generator(device=dev).manual_seed((seed << 32) + step)
+                gen = torch.Generator(device=dev).manual_seed(step_seed(seed, step, data_rank))
                 state, metrics = self._train_step(state, self._batch(raw), generator=gen)
                 window += 1
                 new_step = step + 1
@@ -217,15 +256,46 @@ class Trainer:
                     dt = time.perf_counter() - t0
                     metrics["steps_per_sec"] = window / dt if dt > 0 else 0.0
                     self._log(new_step, metrics)
-                    print(f"step {new_step}: loss={metrics['loss/diffusion']:.5f} "
-                          f"({metrics['steps_per_sec']:.2f} it/s)")
+                    if is_main_process():
+                        print(f"step {new_step}: loss={metrics['loss/diffusion']:.5f} "
+                              f"({metrics['steps_per_sec']:.2f} it/s)")
                     t0, window = time.perf_counter(), 0
                 if new_step % self.checkpoint_every == 0 or new_step == end:
-                    self.ckpt.save(new_step, state.state_dict())
+                    self._save(new_step, state)
                 if (self.val_hook is not None and self.val_check_interval
                         and new_step % self.val_check_interval == 0):
-                    self.val_hook(state, new_step)
+                    self._run_val_hook(state, new_step)
         finally:
             if prof is not None:
                 stop_trace(prof, Path(profile_dir))
         return state
+
+    def _save(self, step: int, state: TrainState) -> None:
+        """One card saves its state as it is. Under a strategy every rank
+        gathers the whole state (collective), rank 0 writes it, and the
+        ranks meet at a barrier before training on."""
+        if self.strategy is None:
+            self.ckpt.save(step, state.state_dict())
+            return
+        whole = self.strategy.whole_state(state)
+        if is_main_process():
+            self.ckpt.save(step, whole)
+        del whole
+        sync_processes("checkpoint")
+
+    def _run_val_hook(self, state: TrainState, step: int) -> None:
+        """The hook on rank 0 with whole parameters: under a strategy that
+        stores slices every rank first gathers the masters and the EMA
+        (collective); the other ranks wait at a barrier."""
+        if self.strategy is None:
+            self.val_hook(state, step)
+            return
+        sliced = self.strategy.store_sliced
+        view = TrainState(params=self.strategy.whole(state.params, sliced),
+                          opt_state={},
+                          ema_params=self.strategy.whole(state.ema_params, sliced),
+                          step=step)
+        if is_main_process():
+            self.val_hook(view, step)
+        del view
+        sync_processes("val_hook")

@@ -63,6 +63,20 @@ EVAL_SLICE = [
         "precompute_latents")),
 ]
 
+# The modules of the multi-rank training and the last modules' slice.
+PARALLEL_SLICE = [
+    "mvldm_tpu_torch.parallel.distributed",
+    "mvldm_tpu_torch.parallel.mesh",
+    "mvldm_tpu_torch.parallel.tp",
+    "mvldm_tpu_torch.training.strategy",
+    "mvldm_tpu_torch.evaluation.evaluation_index_generator",
+    "mvldm_tpu_torch.evaluation.co3d_evaluation_index_generator",
+    *(f"mvldm_tpu_torch.scripts.{m}" for m in (
+        "generate_evaluation_index", "generate_co3d_evaluation_index", "verify_parity")),
+    *(f"mvldm_tpu_torch.utils.{m}" for m in (
+        "ckpt_manifest", "wandb_tools", "lpips_convert", "inception_convert")),
+]
+
 
 def test_importing_every_module_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
@@ -70,7 +84,7 @@ def test_importing_every_module_loads_no_jax():
     assert out.returncode == 0, out.stderr
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(result["imported"]) >= 40
-    assert [m for m in CLI_SLICE + TRAIN_SLICE + EVAL_SLICE
+    assert [m for m in CLI_SLICE + TRAIN_SLICE + EVAL_SLICE + PARALLEL_SLICE
             if m not in result["imported"]] == []
     assert result["bad"] == []
     assert result["lazy"] == []
@@ -82,3 +96,13 @@ def test_sources_name_no_jax_import():
     offenders = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
                  for p in PORT_FILES for m in pattern.finditer(p.read_text())]
     assert offenders == []
+
+
+def test_the_port_has_every_module_of_the_jax_package():
+    """Comparing the two packages' file lists leaves only
+    ``data/native_chunk.py``: the port reads chunks with
+    ``torch.load(weights_only=True)`` and needs no native reader."""
+    def modules(pkg):
+        return {p.relative_to(REPO / pkg).as_posix() for p in (REPO / pkg).rglob("*.py")}
+
+    assert modules("mvldm_tpu") - modules("mvldm_tpu_torch") == {"data/native_chunk.py"}
