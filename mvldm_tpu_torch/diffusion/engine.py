@@ -28,6 +28,7 @@ from ..geometry.projection import get_world_rays, sample_image_grid
 from ..models.encodings import positional_encoding, srt_ray_encode
 from ..models.unet import MultiViewUNet, MultiViewUNetCfg
 from ..models.vae import AutoencoderCfg, AutoencoderKL, DiagonalGaussian
+from ..utils.profiling import span, sync
 from .schedulers import DDPMScheduler, Scheduler, SchedulerCfg
 
 VAE_SCALE = 0.18215  # SD VAE latent scaling
@@ -179,6 +180,7 @@ class DiffusionEngine:
         sampled from the posterior with ``noise`` or the generator."""
         return self._encode(images, generator, noise)
 
+    @span("engine.encode")
     def _encode(self, images: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -192,6 +194,7 @@ class DiffusionEngine:
         latents = dist.sample(noise=noise) * VAE_SCALE
         return latents.reshape(b, v, h // 8, w // 8, -1)
 
+    @span("engine.decode")
     @torch.inference_mode()
     def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
         """(b, v, h, w, 4) scaled latents -> (b, v, 8h, 8w, 3) in [0, 1]."""
@@ -202,6 +205,7 @@ class DiffusionEngine:
 
     # ----------------------------------------------------------------- rays
 
+    @span("engine.ray_encode")
     def ray_encode(self, extrinsics: torch.Tensor, intrinsics: torch.Tensor,
                    latent_hw: Tuple[int, int]) -> torch.Tensor:
         """Per-view ray channels at latent resolution -> (b, v, h, w, c_ray)."""
@@ -210,8 +214,9 @@ class DiffusionEngine:
         intrinsics = intrinsics.to(self.device, torch.float32)
         xy, _ = sample_image_grid((hl, wl), device=self.device)
         xy = xy.reshape(1, 1, hl * wl, 2)
-        origins, directions = get_world_rays(
-            xy, extrinsics[:, :, None], intrinsics[:, :, None])
+        with sync("world_rays"):
+            origins, directions = get_world_rays(
+                xy, extrinsics[:, :, None], intrinsics[:, :, None])
         if self.cfg.use_plucker:
             origins = torch.cross(origins, directions, dim=-1)
         rc = self.cfg.ray_encodings
@@ -232,6 +237,7 @@ class DiffusionEngine:
 
     # ------------------------------------------------------------- training
 
+    @span("engine.training_loss")
     def training_loss(self, batch: Batch, num_context_views: int,
                       draws: Optional[TrainDraws] = None,
                       generator: Optional[torch.Generator] = None,
@@ -268,9 +274,9 @@ class DiffusionEngine:
         # Absolute vs relative poses; the reference view is a kept context slot.
         extrinsics = batch.extrinsics.to(dev, torch.float32)
         rel_index = torch.where(ctx_keep, d.perm_scores, torch.inf).argmin(dim=-1)
-        extrinsics = torch.where(d.use_relative[:, None, None, None],
-                                 absolute_to_relative_camera(extrinsics, rel_index),
-                                 extrinsics)
+        with sync("relative_pose"):
+            relative = absolute_to_relative_camera(extrinsics, rel_index)
+        extrinsics = torch.where(d.use_relative[:, None, None, None], relative, extrinsics)
 
         # Frozen VAE: no gradient, and no inference-mode tensors in the graph.
         with torch.no_grad():
@@ -294,7 +300,7 @@ class DiffusionEngine:
         mask_ch = is_target.to(self.dtype)[:, :, None, None, None].expand(b, v, hl, wl, 1)
         inputs = torch.cat([latents_in.to(self.dtype), mask_ch, rays], dim=-1)
         timesteps = torch.where(is_target, d.t[:, None], 0)
-        pred = self.unet(inputs, timesteps, view_mask=view_mask)
+        pred = self._unet("train", inputs, timesteps, view_mask)
 
         per_view = ((pred.float() - noise.float()) ** 2).mean(dim=(2, 3, 4))
         count = is_target.sum()
@@ -304,6 +310,12 @@ class DiffusionEngine:
         return loss, {"loss/diffusion": loss}
 
     # ------------------------------------------------------------- sampling
+
+    def _unet(self, branch: str, inputs: torch.Tensor, timesteps: torch.Tensor,
+              view_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One UNet call, spanned with its CFG branch."""
+        with span("engine.unet", {"branch": branch}):
+            return self.unet(inputs, timesteps, view_mask=view_mask)
 
     def _unet_inputs(self, context_latents: torch.Tensor, x_t: torch.Tensor,
                      rays: torch.Tensor) -> torch.Tensor:
@@ -318,6 +330,7 @@ class DiffusionEngine:
         ], dim=1)
         return torch.cat([lat.to(self.dtype), mask.to(self.dtype), rays], dim=-1)
 
+    @span("engine.denoise_step")
     @torch.inference_mode()
     def denoise_step(self, x_t: torch.Tensor, ts: int,
                      context_latents: torch.Tensor, rays: torch.Tensor,
@@ -338,21 +351,22 @@ class DiffusionEngine:
             ones = torch.ones((b, v_c + v_t), dtype=torch.bool, device=dev)
             uncond_mask = ones.clone()
             uncond_mask[:, :v_c] = False
-            pred = self.unet(torch.cat([inputs, inputs]),
-                             torch.cat([timesteps, timesteps]),
-                             view_mask=torch.cat([ones, uncond_mask]))
+            pred = self._unet("batched", torch.cat([inputs, inputs]),
+                              torch.cat([timesteps, timesteps]),
+                              torch.cat([ones, uncond_mask]))
             pred_cond, pred_uncond = pred[:b, v_c:], pred[b:, v_c:]
             pred_out = pred_uncond + cfg.cfg_scale * (pred_cond - pred_uncond)
         elif cfg.use_cfg:
-            pred_cond = self.unet(inputs, timesteps)
-            pred_uncond = self.unet(inputs[:, v_c:], timesteps[:, v_c:])
+            pred_cond = self._unet("cond", inputs, timesteps)
+            pred_uncond = self._unet("uncond", inputs[:, v_c:], timesteps[:, v_c:])
             pred_out = pred_uncond + cfg.cfg_scale * (pred_cond[:, v_c:] - pred_uncond)
         else:
-            pred_out = self.unet(inputs, timesteps)[:, v_c:]
+            pred_out = self._unet("cond", inputs, timesteps)[:, v_c:]
         if isinstance(self.scheduler, DDPMScheduler):
             return self.scheduler.step(pred_out.float(), ts, x_t.float(), noise=step_noise)
         return self.scheduler.step(pred_out.float(), ts, x_t.float())
 
+    @span("engine.sample_latents")
     @torch.inference_mode()
     def sample_latents(self, context_latents: torch.Tensor,
                        extrinsics: torch.Tensor, intrinsics: torch.Tensor,

@@ -18,6 +18,8 @@ from typing import Any, Literal, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..utils.profiling import sync
+
 
 @dataclass
 class DDIMSchedulerKwargs:
@@ -124,7 +126,9 @@ class _Schedule:
         return sample  # neither scheduler scales inputs
 
     def _alpha(self, t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-        a = self.alphas_cumprod.to(like.device)[t.to(like.device)]
+        with sync("schedule_upload"):  # the host table, a pageable copy
+            table = self.alphas_cumprod.to(like.device)
+        a = table[t.to(like.device)]
         return a.reshape(a.shape + (1,) * (like.dim() - a.dim()))
 
     def add_noise(self, original: torch.Tensor, noise: torch.Tensor,

@@ -24,6 +24,13 @@ Random draws come from the caller's ``torch.Generator``, consumed in launch
 order. Launch outputs stay on the device until ``gather``: each window's
 context is a device slice of the window before, with no host sync inside
 a chain.
+
+The host's part is spanned (``utils/profiling.py``): a dispatch
+(``sampler.dispatch``), each launch in it (``sampler.launch``) and the
+gather (``sampler.gather``), and each call that holds the host until the
+device has drained: the pageable uploads (``sync.upload``), the relative
+poses' index and inverse (``sync.pose_index``, ``sync.relative_pose``) and
+each copy to the host (``sync.gather``).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import numpy as np
 import torch
 
 from ..geometry.camera_utils import absolute_to_relative_camera
+from ..utils.profiling import span, sync
 from .engine import DiffusionEngine
 
 
@@ -74,7 +82,25 @@ class VideoSampler:
         return (np.clip(images, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
 
     def _tensor(self, arr) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(arr)).to(self.device)
+        """A host array on the engine's device: a pageable copy."""
+        with sync("upload"):
+            return torch.as_tensor(np.ascontiguousarray(arr)).to(self.device)
+
+    def _relative(self, extr: np.ndarray, rel_index: int) -> torch.Tensor:
+        """Host poses (..., v, 4, 4) on the device, relative to view ``rel_index``."""
+        extr = self._tensor(extr)
+        with sync("relative_pose"):
+            return absolute_to_relative_camera(extr, rel_index)
+
+    @staticmethod
+    def _launch_span(kind: str, rows: int, v_c: int, v_t: int) -> span:
+        return span("sampler.launch", {"kind": kind, "rows": rows, "v_c": v_c, "v_t": v_t})
+
+    @staticmethod
+    def _dispatch_span(kind: str, scenes, limit_frames: Optional[int]) -> span:
+        frames = sum(len(t.index) if limit_frames is None else min(limit_frames, len(t.index))
+                     for _, t in scenes)
+        return span("sampler.dispatch", {"kind": kind, "scenes": len(scenes), "frames": frames})
 
     @staticmethod
     def _quantize(images: torch.Tensor) -> torch.Tensor:
@@ -132,7 +158,7 @@ class VideoSampler:
         def launch(ctx_imgs, c_extr, c_intr, pos_padded, rel_index, v_t, generator):
             extr = np.concatenate([c_extr, tgt_extr[:, pos_padded]], axis=1)
             intr = np.concatenate([c_intr, tgt_intr[:, pos_padded]], axis=1)
-            extr = absolute_to_relative_camera(self._tensor(extr), rel_index)
+            extr = self._relative(extr, rel_index)
             return self._sample(ctx_imgs, extr, self._tensor(intr), v_t, generator)
 
         return launch
@@ -156,20 +182,28 @@ class VideoSampler:
     # ---------------------------------------------------------- gathering
 
     @staticmethod
+    def _host(out: torch.Tensor) -> np.ndarray:
+        """A launch output's frames on the host, (rows, h, w, 3)."""
+        with sync("gather"):
+            return out.cpu().numpy().reshape(-1, *out.shape[-3:])
+
+    @staticmethod
+    @span("sampler.gather")
     def gather(pending: "VideoSampler.Pending") -> Dict[int, np.ndarray]:
         results: Dict[int, np.ndarray] = {}
         for out, rows in pending:
-            host = out.cpu().numpy().reshape(-1, *out.shape[-3:])
+            host = VideoSampler._host(out)
             for row, frame_index in rows:
                 results[frame_index] = host[row]
         return results
 
     @staticmethod
+    @span("sampler.gather")
     def gather_many(pending: "VideoSampler.ManyPending",
                     n_scenes: int) -> List[Dict[int, np.ndarray]]:
         results: List[Dict[int, np.ndarray]] = [{} for _ in range(n_scenes)]
         for out, rows in pending:
-            host = out.cpu().numpy().reshape(-1, *out.shape[-3:])
+            host = VideoSampler._host(out)
             for row, scene, frame_index in rows:
                 results[scene][frame_index] = host[row]
         return results
@@ -222,6 +256,10 @@ class VideoSampler:
         """Run a batch of scenes (equal target counts), scenes stacked along
         the batch axis of every launch; ``gather_many`` turns the result into
         per-scene {frame_index: uint8 image} dicts."""
+        with self._dispatch_span("anchored", scenes, limit_frames):
+            return self._anchored_many(scenes, generator, limit_frames)
+
+    def _anchored_many(self, scenes, generator, limit_frames) -> "VideoSampler.ManyPending":
         (targets, n_t, ctx_extr, ctx_intr, tgt_extr, tgt_intr,
          ctx0_u8) = self._prep_scene_batch(scenes, limit_frames)
         s = len(targets)
@@ -241,9 +279,10 @@ class VideoSampler:
         # First window: up to four anchors from the context alone.
         first_n = min(len(anchor_pos), 4)
         first_bucket = min(self.num_anchors, 4)
-        anchors = launch(ctx0_u8, ctx_extr, ctx_intr,
-                         pad_cols(anchor_pos[:first_n], first_bucket),
-                         rel_index=0, v_t=first_bucket, generator=generator)
+        with self._launch_span("anchor", s, 1, first_bucket):
+            anchors = launch(ctx0_u8, ctx_extr, ctx_intr,
+                             pad_cols(anchor_pos[:first_n], first_bucket),
+                             rel_index=0, v_t=first_bucket, generator=generator)
         pending.append((anchors, [
             (sc * first_bucket + i, sc, int(targets[sc].index[pos]))
             for sc in range(s) for i, pos in enumerate(anchor_pos[:first_n])]))
@@ -260,9 +299,10 @@ class VideoSampler:
             c2_extr = np.concatenate([ctx_extr, tgt_extr[:, [last_anchor_pos]]], axis=1)
             c2_intr = np.concatenate([ctx_intr, tgt_intr[:, [last_anchor_pos]]], axis=1)
             real = end - start
-            imgs = launch(ctx2_u8, c2_extr, c2_intr,
-                          pad_cols(anchor_pos[start:end], self.group_size),
-                          rel_index=1, v_t=self.group_size, generator=generator)
+            with self._launch_span("chain", s, 2, self.group_size):
+                imgs = launch(ctx2_u8, c2_extr, c2_intr,
+                              pad_cols(anchor_pos[start:end], self.group_size),
+                              rel_index=1, v_t=self.group_size, generator=generator)
             pending.append((imgs, [
                 (sc * self.group_size + i, sc, int(targets[sc].index[pos]))
                 for sc in range(s) for i, pos in enumerate(anchor_pos[start:end])]))
@@ -323,18 +363,19 @@ class VideoSampler:
             real_chunk = len(chunk)
             while len(chunk) < bucket:
                 chunk.append(chunk[-1])
-            ctx_idx = np.broadcast_to(np.stack([j[0] for j in chunk]),
-                                      (s, bucket, 2)).copy()
-            extr = np.stack([np.concatenate(
-                [ctx_extr[:, 0:1], tgt_extr[:, [j[1]]], tgt_extr[:, j[2]]], axis=1)
-                for j in chunk], axis=1)  # (S, g, 2 + group_size, 4, 4)
-            intr = np.stack([np.concatenate(
-                [ctx_intr[:, 0:1], tgt_intr[:, [j[1]]], tgt_intr[:, j[2]]], axis=1)
-                for j in chunk], axis=1)
-            extr = absolute_to_relative_camera(self._tensor(extr), 1)
-            out = self._sample_indexed_scenes(
-                tables_u8, self._tensor(ctx_idx), extr, self._tensor(intr),
-                v_fill, generator)  # (S * g, v_t, h, w, 3)
+            with self._launch_span("fill", s * bucket, 2, v_fill):
+                ctx_idx = np.broadcast_to(np.stack([j[0] for j in chunk]),
+                                          (s, bucket, 2)).copy()
+                extr = np.stack([np.concatenate(
+                    [ctx_extr[:, 0:1], tgt_extr[:, [j[1]]], tgt_extr[:, j[2]]], axis=1)
+                    for j in chunk], axis=1)  # (S, g, 2 + group_size, 4, 4)
+                intr = np.stack([np.concatenate(
+                    [ctx_intr[:, 0:1], tgt_intr[:, [j[1]]], tgt_intr[:, j[2]]], axis=1)
+                    for j in chunk], axis=1)
+                extr = self._relative(extr, 1)
+                out = self._sample_indexed_scenes(
+                    tables_u8, self._tensor(ctx_idx), extr, self._tensor(intr),
+                    v_fill, generator)  # (S * g, v_t, h, w, 3)
             rows = []
             for sc in range(s):
                 for g, (_, _, _, group) in enumerate(chunk[:real_chunk]):
@@ -360,6 +401,11 @@ class VideoSampler:
                                      ) -> "VideoSampler.ManyPending":
         """S scenes (equal target counts) advance their windows in lockstep,
         stacked along the batch axis of every launch."""
+        with self._dispatch_span("autoregressive", scenes, limit_frames):
+            return self._autoregressive_many(scenes, generator, limit_frames)
+
+    def _autoregressive_many(self, scenes, generator, limit_frames
+                             ) -> "VideoSampler.ManyPending":
         (targets, n_t, ctx_extr, ctx_intr, tgt_extr, tgt_intr,
          ctx0_u8) = self._prep_scene_batch(scenes, limit_frames,
                                            "dispatch_autoregressive_many")
@@ -373,7 +419,7 @@ class VideoSampler:
             def launch(ctx_lat, c_extr, c_intr, pos_padded, rel_index, v_t, generator):
                 extr = np.concatenate([c_extr, tgt_extr[:, pos_padded]], axis=1)
                 intr = np.concatenate([c_intr, tgt_intr[:, pos_padded]], axis=1)
-                extr = absolute_to_relative_camera(self._tensor(extr), rel_index)
+                extr = self._relative(extr, rel_index)
                 return self._sample_latents(ctx_lat, extr, self._tensor(intr), v_t,
                                             generator)
         else:
@@ -387,10 +433,11 @@ class VideoSampler:
                 for sc in range(s) for i, p in enumerate(positions)]))
 
         pending: VideoSampler.ManyPending = []
-        out = launch(ctx0, ctx_extr, ctx_intr,
-                     self._pad_cols(np.arange(n_initial), self.num_anchors),
-                     rel_index=0, v_t=self.num_anchors, generator=generator)
-        submit(out, self.num_anchors, range(n_initial))
+        with self._launch_span("ar", s, 1, self.num_anchors):
+            out = launch(ctx0, ctx_extr, ctx_intr,
+                         self._pad_cols(np.arange(n_initial), self.num_anchors),
+                         rel_index=0, v_t=self.num_anchors, generator=generator)
+            submit(out, self.num_anchors, range(n_initial))
         last_pos, last = n_initial - 1, out[:, n_initial - 1]
         start = n_initial
         while start < n_t:
@@ -398,10 +445,11 @@ class VideoSampler:
             ctx2 = torch.cat([ctx0, last[:, None]], dim=1)
             c2_extr = np.concatenate([ctx_extr, tgt_extr[:, [last_pos]]], axis=1)
             c2_intr = np.concatenate([ctx_intr, tgt_intr[:, [last_pos]]], axis=1)
-            out = launch(ctx2, c2_extr, c2_intr,
-                         self._pad_cols(np.arange(start, end), self.group_size),
-                         rel_index=1, v_t=self.group_size, generator=generator)
-            submit(out, self.group_size, range(start, end))
+            with self._launch_span("ar", s, 2, self.group_size):
+                out = launch(ctx2, c2_extr, c2_intr,
+                             self._pad_cols(np.arange(start, end), self.group_size),
+                             rel_index=1, v_t=self.group_size, generator=generator)
+                submit(out, self.group_size, range(start, end))
             last_pos, last = end - 1, out[:, end - 1 - start]
             start = end
         return pending
@@ -417,12 +465,14 @@ class VideoSampler:
              generator: Optional[torch.Generator]) -> torch.Tensor:
         """One single-scene launch: (v_c, h, w, 3) uint8 context on the
         device -> (v_t, h, w, 3) uint8 targets on the device."""
-        extr = np.concatenate([c_extr, t_extr], axis=0)[None]
-        intr = np.concatenate([c_intr, t_intr], axis=0)[None]
-        extr = absolute_to_relative_camera(self._tensor(extr), rel_index)
-        return self._sample(ctx_u8[None], extr, self._tensor(intr), len(t_extr),
-                            generator)[0]
+        with self._launch_span("ar", 1, len(c_extr), len(t_extr)):
+            extr = np.concatenate([c_extr, t_extr], axis=0)[None]
+            intr = np.concatenate([c_intr, t_intr], axis=0)[None]
+            extr = self._relative(extr, rel_index)
+            return self._sample(ctx_u8[None], extr, self._tensor(intr), len(t_extr),
+                                generator)[0]
 
+    @span("sampler.dispatch", {"kind": "autoregressive", "scenes": 1})
     def dispatch_autoregressive(self, context: SceneViews, target: SceneViews,
                                 generator: Optional[torch.Generator] = None,
                                 limit_frames: Optional[int] = None

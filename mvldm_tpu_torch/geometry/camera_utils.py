@@ -6,6 +6,8 @@ from typing import Union
 
 import torch
 
+from ..utils.profiling import sync
+
 
 def absolute_to_relative_camera(tform: torch.Tensor,
                                 index: Union[int, torch.Tensor]) -> torch.Tensor:
@@ -14,8 +16,11 @@ def absolute_to_relative_camera(tform: torch.Tensor,
     ``index`` is an ``int`` (the same view for every leading index of a
     (..., v, 4, 4) ``tform``) or a (b,) integer tensor naming one view per
     example of a (b, v, 4, 4) ``tform``, the JAX loss's ``vmap`` over
-    ``rel_index`` written out."""
+    ``rel_index`` written out. An ``int`` index selects by a list, which is
+    uploaded: a pageable copy (``sync.pose_index``)."""
     if isinstance(index, int):
-        return torch.linalg.inv(tform[..., [index], :, :]) @ tform
+        with sync("pose_index"):
+            ref = tform[..., [index], :, :]
+        return torch.linalg.inv(ref) @ tform
     ref = tform[torch.arange(tform.shape[0], device=tform.device), index.to(tform.device)]
     return torch.linalg.inv(ref)[:, None] @ tform

@@ -34,6 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.profiling import span
 from . import _build
 from .f32_route import flash_attention_bwd_f32, flash_attention_f32
 
@@ -231,6 +232,7 @@ def _launch_bwd_dkv(lib, q, k, v, bias, lse, delta, g, dk, dv, dbias, scale: flo
     _build.check(err, f"mvldm_flash_attn_bwd_dkv (head dim {d})")
 
 
+@span("ops.flash_attention_bwd_dq")
 def flash_attention_bwd_dq(q, k, v, bias, out, lse, g, scale=None):
     """dQ kernel. Returns (dq, delta): delta = rowsum(g * out), f32
     (B, H, Lq), computed in the kernel's prologue for the dK/dV kernel."""
@@ -250,6 +252,7 @@ def flash_attention_bwd_dq(q, k, v, bias, out, lse, g, scale=None):
 flash_attention_bwd_dq.launches = 0
 
 
+@span("ops.flash_attention_bwd_dkv")
 def flash_attention_bwd_dkv(q, k, v, bias, lse, delta, g, scale=None,
                             need_dbias: bool = True):
     """dK / dV / dbias kernel. Returns (dk, dv, dbias); dbias is the f32
@@ -322,6 +325,7 @@ class _Attention(torch.autograd.Function):
         return dq, dk, dv, db if need_dbias else None, None
 
 
+@span("ops.attention")
 def attention(
     q: torch.Tensor,
     k: torch.Tensor,

@@ -36,6 +36,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from . import _build
 from .attention import _launch_flash, attention, attention_reference
 from .f32_route import fused_ln_self_attention_f32
@@ -153,6 +154,7 @@ class _FusedLnSelfAttention(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
+@span("ops.fused_ln_self_attention")
 def fused_ln_self_attention(x, ln_scale, ln_bias, wq, wk, wv, wo, bo,
                             num_heads: int, head_dim: int,
                             eps: float = 1e-6) -> torch.Tensor:

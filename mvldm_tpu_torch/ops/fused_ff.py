@@ -26,6 +26,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from . import _build
 from .f32_route import fused_ln_geglu_ff_f32
 from .fused_attn import (
@@ -87,6 +88,7 @@ class _FusedLnGegluFF(torch.autograd.Function):
         return (*grads, None)
 
 
+@span("ops.fused_ln_geglu_ff")
 def fused_ln_geglu_ff(x, ln_scale, ln_bias, w1, b1, w2, b2,
                       eps: float = 1e-6) -> torch.Tensor:
     """x: (..., L, C) -> x + FF(LN(x)), differentiable. w1: (C, 8C), w2:

@@ -46,6 +46,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span, sync
+
 
 @dataclass
 class OptimizerCfg:
@@ -229,21 +231,31 @@ class Optimizer:
         chunks = _chunks(params)
         if self.every_k > 1:
             n = state["mini_step"]
-            for names in chunks:
-                acc = [state["acc"][k] for k in names]
-                g = [grads[k].float() for k in names]
-                # acc + (g - acc) / (n + 1): the running mean, as optax.MultiSteps.
-                torch._foreach_add_(acc, torch._foreach_div(torch._foreach_sub(g, acc), n + 1))
+            with span("optim.accumulate"):
+                for names in chunks:
+                    acc = [state["acc"][k] for k in names]
+                    g = [grads[k].float() for k in names]
+                    # acc + (g - acc) / (n + 1): the running mean, as optax.MultiSteps.
+                    torch._foreach_add_(acc, torch._foreach_div(torch._foreach_sub(g, acc),
+                                                                n + 1))
             state["mini_step"] = (n + 1) % self.every_k
             if n != self.every_k - 1:
                 return False
             grads = state["acc"]
         clip_norm = None
         if self.clip is not None:
-            norm = (global_norm(list(grads.values())) if norm_fn is None
-                    else norm_fn(grads))
+            with span("optim.clip"):
+                norm = (global_norm(list(grads.values())) if norm_fn is None
+                        else norm_fn(grads))
             if not norm < self.clip:
                 clip_norm = norm
+        with span("optim.update"):
+            self._update(params, grads, state, chunks, clip_norm, noise, noise_fn)
+        return True
+
+    def _update(self, params, grads, state, chunks: List[List[str]], clip_norm,
+                noise, noise_fn: Optional[Callable]) -> None:
+        """The update of an applying step, after accumulation and the clip."""
         count = state["count"]
         lr = float(np.float32(self.lr_schedule(count)))
         for names in chunks:
@@ -270,7 +282,6 @@ class Optimizer:
             for a in state["acc"].values():
                 a.zero_()
         state["count"] = count + 1
-        return True
 
     def _adam(self, g, p, mu, nu, count: int) -> List[torch.Tensor]:
         b1, b2 = self.b1, self.b2
@@ -367,7 +378,9 @@ class Optimizer:
 def global_norm(tensors: List[torch.Tensor]) -> float:
     """sqrt(sum of squares) over every element of ``tensors``, in f32."""
     norms = torch._foreach_norm(tensors, 2, dtype=torch.float32)
-    return float(torch.linalg.vector_norm(torch.stack(norms)))
+    norm = torch.linalg.vector_norm(torch.stack(norms))
+    with sync("grad_norm"):
+        return float(norm)
 
 
 def build_optimizer(optimizer_cfg: OptimizerCfg, lr_schedule: Callable[[int], float],

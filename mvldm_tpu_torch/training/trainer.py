@@ -10,6 +10,12 @@ forward that sampling runs, so the kernels see what they are built for.
 each step hands the module's gradients to the optimizer, which casts them
 to f32 a group at a time, updates the masters, and copies the masters back
 into the module. The VAE is frozen.
+
+A step's parts are spanned (``utils/profiling.py``): ``train.forward_backward``
+(the batch's upload, ``sync.batch_upload``, the loss and its backward),
+``train.grad_norm``, ``train.optimizer``, ``train.load_params`` and
+``train.ema``; the ``Trainer``'s loop adds ``train.data_wait`` (taking the
+next batch), ``train.log``, ``train.checkpoint`` and ``train.val``.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from pathlib import Path
 from typing import Any, Callable, Dict, Optional
 
@@ -26,7 +32,7 @@ import torch.nn as nn
 
 from ..diffusion.engine import Batch, DiffusionEngine, TrainDraws
 from ..parallel.distributed import is_main_process, sync_processes
-from ..utils.profiling import start_trace, stop_trace
+from ..utils.profiling import span, start_trace, stop_trace, sync
 from .checkpoint import CheckpointManager
 from .optim import Optimizer, ema_update, global_norm
 from .strategy import Strategy, step_seed
@@ -80,6 +86,17 @@ def batch_from_arrays(context_img, target_img, context_extr, target_extr,
                  latent_moments=None if latents is None else latents.float())
 
 
+def upload_batch(batch: Batch, device) -> Batch:
+    """``batch`` with its host tensors on ``device``: pageable copies."""
+    moved = {}
+    for name in ("images", "extrinsics", "intrinsics", "latent_moments"):
+        t = getattr(batch, name)
+        if t is not None and t.device.type == "cpu":
+            with sync("batch_upload"):
+                moved[name] = t.to(device)
+    return replace(batch, **moved)
+
+
 def make_train_step(engine: DiffusionEngine, tx: Optimizer, num_context_views: int,
                     ema_decay: float = 0.995, strategy: Optional[Strategy] = None
                     ) -> Callable:
@@ -96,34 +113,43 @@ def make_train_step(engine: DiffusionEngine, tx: Optimizer, num_context_views: i
         for _, p in named:
             p.grad = None
         if strategy is None:
-            loss, metrics = engine.training_loss(batch, num_context_views, draws, generator)
-            loss.backward()
+            with span("train.forward_backward"):
+                loss, metrics = engine.training_loss(upload_batch(batch, engine.device),
+                                                     num_context_views, draws, generator)
+                loss.backward()
             # A parameter the loss does not reach (the SD text attention's
             # q/k/v under the zero text context) has a zero gradient, as in
             # JAX. The module's (bf16) gradients go to the optimizer as they are.
             grads = {n: p.grad if p.grad is not None else torch.zeros_like(state.params[n])
                      for n, p in named}
-            grad_norm = global_norm(list(grads.values()))
-            applied = tx.apply(state.params, grads, state.opt_state)
+            with span("train.grad_norm"):
+                grad_norm = global_norm(list(grads.values()))
+            with span("train.optimizer"):
+                applied = tx.apply(state.params, grads, state.opt_state)
         else:
-            with strategy.compute():
-                loss, metrics = engine.training_loss(batch, num_context_views, draws,
-                                                     generator, strategy.count_reduce)
+            with span("train.forward_backward"), strategy.compute():
+                loss, metrics = engine.training_loss(upload_batch(batch, engine.device),
+                                                     num_context_views, draws, generator,
+                                                     strategy.count_reduce)
                 loss.backward()
             grads = strategy.reduce_grads()
-            grad_norm = strategy.global_norm(grads)
+            with span("train.grad_norm"):
+                grad_norm = strategy.global_norm(grads)
             metrics = strategy.reduce_metrics(metrics)
-            applied = strategy.apply(tx, state, grads)
+            with span("train.optimizer"):
+                applied = strategy.apply(tx, state, grads)
         del grads
         for _, p in named:
             p.grad = None
         if applied:
-            if strategy is None:
-                load_params(engine.unet, state.params)
-            else:
-                strategy.load_module(state.params)
+            with span("train.load_params"):
+                if strategy is None:
+                    load_params(engine.unet, state.params)
+                else:
+                    strategy.load_module(state.params)
             if state.ema_params is not None:
-                ema_update(state.ema_params, state.params, ema_decay)
+                with span("train.ema"):
+                    ema_update(state.ema_params, state.params, ema_decay)
         state.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = grad_norm
@@ -234,17 +260,20 @@ class Trainer:
         data_rank = self.strategy.mesh.data_rank if self.strategy is not None else 0
         profile_window = (start + 10, start + 13)
         prof = None
+        batches = iter(loader)
         try:
-            for raw in loader:
+            while state.step < end:
                 step = state.step
-                if step >= end:
-                    break
                 if profile_dir and step == profile_window[0] and prof is None:
                     prof = start_trace()
                 if prof is not None and step == profile_window[1]:
                     out = stop_trace(prof, Path(profile_dir))
                     prof = None
                     print(f"[profile] wrote train-step trace to {out}")
+                with span("train.data_wait"):
+                    raw = next(batches, None)
+                if raw is None:
+                    break
                 if self.step_tracker is not None:
                     self.step_tracker.set_step(step)
                 gen = torch.Generator(device=dev).manual_seed(step_seed(seed, step, data_rank))
@@ -252,19 +281,22 @@ class Trainer:
                 window += 1
                 new_step = step + 1
                 if new_step % self.log_every == 0 or new_step == end:
-                    metrics = {k: float(v) for k, v in metrics.items()}  # syncs the device
-                    dt = time.perf_counter() - t0
-                    metrics["steps_per_sec"] = window / dt if dt > 0 else 0.0
-                    self._log(new_step, metrics)
+                    with span("train.log"):
+                        metrics = {k: float(v) for k, v in metrics.items()}  # syncs the device
+                        dt = time.perf_counter() - t0
+                        metrics["steps_per_sec"] = window / dt if dt > 0 else 0.0
+                        self._log(new_step, metrics)
                     if is_main_process():
                         print(f"step {new_step}: loss={metrics['loss/diffusion']:.5f} "
                               f"({metrics['steps_per_sec']:.2f} it/s)")
                     t0, window = time.perf_counter(), 0
                 if new_step % self.checkpoint_every == 0 or new_step == end:
-                    self._save(new_step, state)
+                    with span("train.checkpoint"):
+                        self._save(new_step, state)
                 if (self.val_hook is not None and self.val_check_interval
                         and new_step % self.val_check_interval == 0):
-                    self._run_val_hook(state, new_step)
+                    with span("train.val"):
+                        self._run_val_hook(state, new_step)
         finally:
             if prof is not None:
                 stop_trace(prof, Path(profile_dir))

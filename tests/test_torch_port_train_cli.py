@@ -29,7 +29,6 @@ from mvldm_tpu_torch.scripts import main as main_script
 from mvldm_tpu_torch.training import CheckpointManager, Trainer, build_lr_schedule
 from mvldm_tpu_torch.training import build_optimizer
 from mvldm_tpu_torch.training.optim import OptimizerCfg
-from mvldm_tpu_torch.utils import profiling
 from mvldm_tpu_torch.utils.image_io import load_image
 
 from synthetic_data import write_synthetic_dataset
@@ -206,33 +205,18 @@ def test_a_step_after_an_ema_val_hook_equals_one_without(data_root, tmp_path, tr
     assert any(not torch.equal(seen[0][n], plain.params[n]) for n in plain.params)
 
 
-def test_trace_and_throughput_meter(tmp_path, monkeypatch):
-    """``utils/profiling``: ``trace`` is a no-op without a directory and
-    writes a Chrome trace with one; the meter's rate is items over the
-    ticks' time."""
-    monkeypatch.delenv("MVLDM_PROFILE_DIR", raising=False)
-    with profiling.trace("off"):
-        torch.ones(4).sum()
-    assert not list(tmp_path.iterdir())
-    with profiling.trace("step", tmp_path):
-        with profiling.annotate("work"):
-            torch.ones(4).sum()
-    assert json.loads((tmp_path / "step" / "trace.json").read_text())["traceEvents"]
-    meter = profiling.ThroughputMeter(window=2)
-    assert meter.items_per_sec == 0.0 and meter.mean_step_time == 0.0
-    for items in (5, 3, 4):
-        meter.tick(items)
-    assert len(meter._counts) == 2 and meter.items_per_sec > 0
-    assert meter.items_per_sec == pytest.approx(7 / sum(meter._times))
-    assert meter.mean_step_time == pytest.approx(sum(meter._times) / 2)
-
-
 def test_profile_window_writes_a_trace(data_root, tmp_path, train_batch, monkeypatch):
     monkeypatch.setenv("MVLDM_PROFILE_DIR", str(tmp_path / "prof"))
     trainer = make_trainer(data_root, tmp_path, BatchesOf(train_batch), max_steps=14)
     trainer.fit(trainer.init_state())
     trace = tmp_path / "prof" / "trace.json"
-    assert trace.is_file() and json.loads(trace.read_text())["traceEvents"]
+    events = json.loads(trace.read_text())["traceEvents"]
+    # The program's own ranges lie in the window: three steps' parts.
+    for part in ("train.data_wait", "train.forward_backward", "train.optimizer",
+                 "engine.training_loss", "train.log"):
+        assert sum(e.get("name") == "mvldm/" + part for e in events) == 3, part
+    # The gradient norm is read on the host twice a step: the metric and the clip.
+    assert sum(e.get("name") == "mvldm/sync.grad_norm" for e in events) == 6
 
 
 # --------------------------------------------------------------------- CLI
