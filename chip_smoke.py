@@ -81,7 +81,15 @@ Phases, each fatal on failure (non-zero exit, no final result line):
    launch counts of all five kernels, which must each rise (and no
    f32-route kernel), and one step with block remat for its peak memory.
 10. a profile of one training step: device time by kernel group, the flash
-   backward on its own, and the idle share.
+   backward on its own, and the idle share. Then fused_adamw: the
+   optimizer's fused kernels (ops/fused_adamw.py) at the baseline's AdamW
+   (f32 moments, clip 0.1, accumulation 2) on the trained f32 masters (686
+   tensors, 0.93B parameters) with seeded bf16 gradients, two accumulation
+   cycles (the first clipped, the second not) on the fused route and on the
+   foreach chain from the same masters and gradients: masters, moments and
+   accumulators equal bit for bit after every micro-step, 1 accumulate
+   launch a micro-step and 1 update launch an applying one; each kernel's
+   device time against its bytes' bound, and each route's whole apply.
 11. cli: the sampling CLI (``python -m mvldm_tpu_torch.scripts.generate_mvldm``,
    through ``generate_mvldm.main`` on the card) at ``+experiment=baseline``
    (bf16, seeded weights, 25 steps) on a synthetic RE10K test stage the
@@ -112,7 +120,8 @@ Phases, each fatal on failure (non-zero exit, no final result line):
    directory, its weights read by ``restore_partial`` alone, into ``val/``;
    (i) ``+experiment=tpu_fast`` for 4 steps: remat, mu and nu stored in
    bf16, a peak below (f)'s. Each run: wall time, peak memory, launches
-   equal to its plan's (TRAIN_CLI_LAUNCHES) and no f32-route launch.
+   equal to its plan's (TRAIN_CLI_LAUNCHES: the optimizer's fused kernels
+   on AdamW with f32 moments, none under tpu_fast) and no f32-route launch.
 13. cli_train_variants, on cli_train's synthetic train stage: (j)
    ``precompute_latents`` (``python -m mvldm_tpu_torch.scripts.precompute_latents``)
    in f32 with the port's seeded VAE, 2 scenes x TRAIN_FRAMES frames x 2
@@ -225,19 +234,26 @@ _TRAIN_STEP_REMAT_CACHED = (42, 16, 16, 25, 25)
 _VAL_SCENE = (1192, 560, 560, 0, 0)
 TRAIN_KERNELS = ("flash_attention", "fused_ln_self_attention", "fused_ln_geglu_ff",
                  "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+# The optimizer's fused kernels (ops/fused_adamw.py), as the launch counts
+# name them: at accumulation 2, one accumulate launch a step and one update
+# launch every second, on AdamW with f32 moments; bf16 moments (tpu_fast)
+# and Adafactor take the foreach chain and launch neither.
+OPTIM_KERNELS = ("fused_adamw_accumulate", "fused_adamw_update")
 
 
-def _plan(steps: int, step: tuple, scenes: int) -> dict:
-    return {k: steps * a + scenes * b for k, a, b in zip(TRAIN_KERNELS, step, _VAL_SCENE)}
+def _plan(steps: int, step: tuple, scenes: int, fused: bool = True) -> dict:
+    plan = {k: steps * a + scenes * b for k, a, b in zip(TRAIN_KERNELS, step, _VAL_SCENE)}
+    plan.update(zip(OPTIM_KERNELS, (steps, steps // 2) if fused else (0, 0)))
+    return plan
 
 
 TRAIN_CLI_LAUNCHES = {
     "train": _plan(4, _TRAIN_STEP, 2 * 2),        # (f): hooks at steps 2 and 4, 2 scenes each
     "train_resume": _plan(2, _TRAIN_STEP, 2),     # (g): steps 5-6, a hook at step 6
     "val": _plan(0, _TRAIN_STEP, 2),              # (h): one val batch of 2 scenes
-    "train_tpu_fast": _plan(4, _TRAIN_STEP_REMAT, 0),  # (i): remat, no hook by step 4
-    "train_latent_cache": _plan(4, _TRAIN_STEP_REMAT_CACHED, 0),  # (k): tpu_fast, the cache
-    "train_adafactor": _plan(2, _TRAIN_STEP, 0),  # (l): the kernels of any baseline step
+    "train_tpu_fast": _plan(4, _TRAIN_STEP_REMAT, 0, fused=False),  # (i): remat, no hook
+    "train_latent_cache": _plan(4, _TRAIN_STEP_REMAT_CACHED, 0, fused=False),  # (k): the cache
+    "train_adafactor": _plan(2, _TRAIN_STEP, 0, fused=False),  # (l): a baseline step's kernels
     # (m): "dots" keeps the 2-D products; the hand kernels launch outside the
     # dispatcher, so their outputs are recomputed as under full remat.
     "train_remat_dots": _plan(2, _TRAIN_STEP_REMAT, 0),
@@ -292,9 +308,17 @@ def check(out, ref, what: str, residual=None) -> dict:
     return rec
 
 
+def _kernel_name(fn) -> str:
+    """A kernel wrapper's name in the launch counts (OPTIM_KERNELS for the
+    optimizer's)."""
+    if fn.__module__.endswith(".fused_adamw"):
+        return f"fused_adamw_{fn.__name__}"
+    return fn.__name__
+
+
 def _counts(kernels) -> dict:
     """Each kernel wrapper's launch count."""
-    return {fn.__name__: fn.launches for fn in kernels}
+    return {_kernel_name(fn): fn.launches for fn in kernels}
 
 
 # --------------------------------------------------------------- kernels
@@ -2120,6 +2144,118 @@ def train_profile_phase(card: str, state, step, batch, gen) -> None:
          "device events", wall_ms=wall_ms, **device_breakdown(prof, 1), card=card)
 
 
+def fused_adamw_phase(card: str, masters: dict) -> tuple:
+    """The optimizer's fused kernels (ops/fused_adamw.py) on ``masters``,
+    the baseline UNet's f32 masters, at the baseline's optimizer (built
+    from ``+experiment=baseline`` as ``scripts.main`` builds it: AdamW with
+    f32 moments, clip 0.1, accumulation 2), with seeded bf16 gradients: two
+    accumulation cycles, the first clipped (gradient norm ~0.2), the second
+    not (~0.02). The fused route and the foreach chain run from the same
+    masters and gradients; after every micro-step masters, moments and
+    accumulators must be equal bit for bit, and the fused route must have
+    launched 1 accumulate a micro-step and 1 update an applying one (the
+    counters zeroed just before the run). Then each kernel's device time
+    (CUDA graph replay) against the bound of its bytes at the HBM rate, and
+    each route's whole ``apply`` between CUDA events. Returns each kernel's
+    record and its launches."""
+    from mvldm_tpu_torch.config import compose, load_typed_root_config
+    from mvldm_tpu_torch.ops import fused_adamw
+    from mvldm_tpu_torch.scripts.main import base_lr
+    from mvldm_tpu_torch.training import build_lr_schedule, build_optimizer, optim
+    from mvldm_tpu_torch.training.optim import global_norm_tensor
+
+    cfg = load_typed_root_config(compose(["+experiment=baseline"]))
+    routes = ("fused", "foreach")
+    schedule = build_lr_schedule(base_lr(cfg), cfg.optimizer.scheduler)
+    tx = {r: build_optimizer(cfg.optimizer, schedule,
+                             gradient_clip_val=cfg.trainer.gradient_clip_val,
+                             accumulate_grad_batches=cfg.trainer.accumulate_grad_batches)
+          for r in routes}
+    tx["foreach"].fused_step = lambda *args: None  # the chain, as off the fused route
+    params = {r: {k: p.clone() for k, p in masters.items()} for r in routes}
+    state = {r: tx[r].init(params[r]) for r in routes}
+    n_params = sum(p.numel() for p in masters.values())
+    gen = torch.Generator("cuda").manual_seed(17)
+    launches, mismatched, norms, apply_ms = [], [], [], {r: [] for r in routes}
+    accumulate, update = fused_adamw.accumulate, fused_adamw.update
+
+    def recorded_norm(tensors):  # the clip's norm on the fused route, kept to read after
+        norms.append(global_norm_tensor(tensors))
+        return norms[-1]
+
+    accumulate.launches = update.launches = 0
+    for micro in range(4):
+        scale = 1e-5 if micro < 2 else 1e-6
+        grads = {k: torch.randn(p.shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+                 .mul_(scale) for k, p in masters.items()}
+        for r in routes:
+            if r == "fused":
+                before = (accumulate.launches, update.launches)
+                if tx[r].fused_step(params[r], grads, state[r]) is None:
+                    fail("fused_adamw: the baseline optimizer's state is off the fused route")
+                optim.global_norm_tensor = recorded_norm
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            try:
+                applied = tx[r].apply(params[r], grads, state[r])
+            finally:
+                optim.global_norm_tensor = global_norm_tensor
+            end.record()
+            torch.cuda.synchronize()
+            apply_ms[r].append(start.elapsed_time(end))
+            if r == "fused":
+                launches.append((accumulate.launches - before[0], update.launches - before[1]))
+        differ = torch.zeros((), dtype=torch.int64, device="cuda")
+        for key in ("params", "mu", "nu", "acc"):
+            a = params["fused"] if key == "params" else state["fused"][key]
+            b = params["foreach"] if key == "params" else state["foreach"][key]
+            for k in masters:
+                differ += (a[k].view(torch.int32) != b[k].view(torch.int32)).sum()
+        mismatched.append(int(differ))
+        if applied != bool(micro % 2):
+            fail(f"fused_adamw: micro-step {micro} applied {applied}")
+    total = (accumulate.launches, update.launches)
+    norms = [float(n) for n in norms]
+
+    # Device time of each kernel on the fused state (its values no longer matter).
+    step = tx["fused"].fused_step(params["fused"], grads, state["fused"])
+    hyper = tx["fused"].hyper(state["fused"]["count"], torch.float32)
+    norm = global_norm_tensor(list(state["fused"]["acc"].values()))
+    timed = {"accumulate_first": (lambda: accumulate(step, 0), 6),
+             "accumulate": (lambda: accumulate(step, 1), 10),
+             "update": (lambda: update(step, hyper, norm), 32)}
+    ms = {name: time_ms(fn) for name, (fn, _) in timed.items()}
+    bounds = {name: bound(0.0, per * n_params) for name, (_, per) in timed.items()}
+    shape = f"{len(masters)} tensors, {n_params} f32 parameters, bf16 gradients"
+    emit(phase="fused_adamw", what="the baseline optimizer (AdamW, f32 moments, clip 0.1, "
+         "accumulation 2) on the trained masters with seeded bf16 gradients, 2 cycles: the "
+         "fused route against the foreach chain after every micro-step; launches (accumulate, "
+         "update) a micro-step; each kernel's device time (CUDA graph replay) and the bound "
+         "of its bytes (6 / 10 / 32 a parameter); each route's whole apply (CUDA events)",
+         shape=shape, launches_per_micro_step=launches, launches=total,
+         mismatched_elements=mismatched, clip_norms=norms, clip=tx["fused"].clip,
+         ms=ms, bound_ms={k: b[0] for k, b in bounds.items()},
+         bound_share={k: bounds[k][0] / ms[k] for k in ms}, apply_ms=apply_ms, card=card)
+    if any(mismatched):
+        fail(f"fused_adamw: the fused route differs from the foreach chain: {mismatched}")
+    if launches != [(1, 0), (1, 1), (1, 0), (1, 1)]:
+        fail(f"fused_adamw: launches (accumulate, update) a micro-step {launches}")
+    if len(norms) != 2 or not norms[0] >= tx["fused"].clip > norms[1]:
+        fail(f"fused_adamw: clip norms {norms}, not one clipped and one not")
+    # plain_ms: the chain's whole apply in the second cycle (the first warms the allocator).
+    common = dict(max_abs_err=0.0, library_ms=None, timed_shape=shape, bound_by="bytes")
+    results = {
+        "fused_adamw_accumulate": dict(
+            common, ms=ms["accumulate"], ms_first=ms["accumulate_first"],
+            bound_ms=bounds["accumulate"][0], bound_ms_first=bounds["accumulate_first"][0],
+            plain_ms=apply_ms["foreach"][2]),
+        "fused_adamw_update": dict(
+            common, ms=ms["update"], bound_ms=bounds["update"][0],
+            plain_ms=apply_ms["foreach"][3]),
+    }
+    return results, dict(zip(OPTIM_KERNELS, total))
+
+
 # The split-TF32 instances: in f32_route.cu the forward at D <= 160
 # (head-dim instance, warpgroups a block), both backward kernels (head-dim
 # instance) and the GEMM tile (B (N, K) and (K, N)); in micro_matmul.cu the
@@ -2612,7 +2748,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from mvldm_tpu_torch.builder import build_flagship_train
-    from mvldm_tpu_torch.ops import _build
+    from mvldm_tpu_torch.ops import _build, fused_adamw
     from mvldm_tpu_torch.ops.attention import (
         flash_attention,
         flash_attention_bwd_dkv,
@@ -2664,12 +2800,17 @@ def main() -> int:
     state, step, batch, train_gen, train_launches = train_phase(
         card, engine, forward + backward, F32_KERNELS)
     train_profile_phase(card, state, step, batch, train_gen)
+    masters = state.params
     del engine, state, step, batch, train_gen
     torch.cuda.empty_cache()
-    cli_train_launches = cli_train_phase(card, forward + backward, F32_KERNELS)
-    variant_launches, precompute_f32 = cli_variants_phase(card, forward + backward, F32_KERNELS)
+    optim_results, optim_launches = fused_adamw_phase(card, masters)
+    del masters
+    torch.cuda.empty_cache()
+    training = forward + backward + (fused_adamw.accumulate, fused_adamw.update)
+    cli_train_launches = cli_train_phase(card, training, F32_KERNELS)
+    variant_launches, precompute_f32 = cli_variants_phase(card, training, F32_KERNELS)
     eval_f32 = eval_phase(card, forward + backward, F32_KERNELS)
-    parallel_launches, parity_f32 = cli_parallel_phase(card, forward + backward, F32_KERNELS)
+    parallel_launches, parity_f32 = cli_parallel_phase(card, training, F32_KERNELS)
 
     f32_meta = {
         "flash_attention_f32": "mvldm_tpu/ops/attention.py:76",
@@ -2701,6 +2842,13 @@ def main() -> int:
                 **{f"cli_parallel_{run}": counts.get(name, 0)
                    for run, counts in parallel_launches.items()}}
 
+    def optim_paths(name: str) -> dict:
+        return {"fused_adamw": optim_launches[name],
+                **{f"cli_{run}": counts[name] for run, counts in cli_train_launches.items()},
+                **{f"cli_{run}": counts[name] for run, counts in variant_launches.items()},
+                **{f"cli_parallel_{run}": counts.get(name, 0)
+                   for run, counts in parallel_launches.items()}}
+
     def f32_paths(name: str) -> dict:
         return {"f32_forward": f32_forward_launches[name],
                 "f32_train_step": f32_step_launches[name],
@@ -2724,6 +2872,12 @@ def main() -> int:
              bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
              timed_shape=r["shape"])
         for name, r in f32_results.items()
+    ] + [
+        dict(name=name, route="cuda", source="mvldm_tpu_torch/csrc/fused_adamw.cu",
+             replaces=("none: the optax chain of mvldm_tpu/training/optim.py, which XLA "
+                       "fuses (plain_ms: the foreach chain's whole apply of that micro-step)"),
+             launches=sum(optim_paths(name).values()), launches_by_path=optim_paths(name), **r)
+        for name, r in optim_results.items()
     ] + [micro_kernel_record(name, r, micro_launches[name])
          for name, r in micro_records.items()])
     emit(phase="total", seconds=time.perf_counter() - t_start, card=card)

@@ -28,7 +28,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "mvldm_tpu_torch"
 SOURCES = ("flash_attn_fwd", "flash_attn_bwd", "fused_ln_attn", "fused_ln_geglu_ff",
-           "micro_matmul", "micro_attn", "micro_exp", "f32_route")
+           "micro_matmul", "micro_attn", "micro_exp", "f32_route", "fused_adamw")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -5,7 +5,9 @@ The JAX package builds ``clip_by_global_norm -> AdamW | Adam | SGD`` with
 optax, optionally wrapped in ``optax.MultiSteps`` for gradient accumulation.
 :class:`Optimizer` does the same arithmetic on a dict of f32 master tensors,
 updated in place with ``torch._foreach_*`` (multi-tensor kernels on the
-card), a group of tensors at a time to bound the temporaries:
+card), a group of tensors at a time to bound the temporaries, or, for AdamW
+and Adam with f32 moments on one card, by the fused kernels of
+``ops/fused_adamw.py`` (:meth:`Optimizer.fused_step`):
 
 * clip: g <- (g / |g|) * max_norm when |g| >= max_norm (global L2 norm);
 * AdamW (``optax.adamw``): mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu
@@ -46,6 +48,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops import fused_adamw
 from ..utils.profiling import span, sync
 
 
@@ -176,7 +179,14 @@ class Optimizer:
     slices of the state passes ``apply`` two callbacks: ``norm_fn(grads)``,
     the whole gradient's norm from this rank's slices (for the clip), and
     ``noise_fn(name, like, count, leaf)``, the slice's rounding draws. One
-    card passes neither."""
+    card passes neither.
+
+    The route (the ``route`` arg of the ``optim.*`` spans) is "fused" where
+    :meth:`fused_step` gives the kernels of ``ops/fused_adamw.py`` the apply:
+    two passes over the state (accumulate; the clip's norm by
+    :func:`global_norm_tensor`, left on the card, then the update), with
+    the result the foreach chain gives, bit for bit. Everything else takes
+    the foreach chain, the kernels' plain path."""
 
     def __init__(self, name: str, lr_schedule: Callable[[int], float], *,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -196,6 +206,7 @@ class Optimizer:
         self.clip, self.every_k = clip, every_k
         self.decay_rate, self.clipping_threshold = decay_rate, clipping_threshold
         self.multiply_by_parameter_scale = multiply_by_parameter_scale
+        self._plan: Optional[fused_adamw.Plan] = None
 
     def init(self, params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         def zeros(dtype=None):
@@ -228,30 +239,80 @@ class Optimizer:
                                                                      torch.Tensor]]] = None,
               *, norm_fn: Optional[Callable] = None, noise_fn: Optional[Callable] = None
               ) -> bool:
-        chunks = _chunks(params)
+        fused = self.fused_step(params, grads, state)
+        route = {"route": "foreach" if fused is None else "fused"}
         if self.every_k > 1:
             n = state["mini_step"]
-            with span("optim.accumulate"):
-                for names in chunks:
-                    acc = [state["acc"][k] for k in names]
-                    g = [grads[k].float() for k in names]
-                    # acc + (g - acc) / (n + 1): the running mean, as optax.MultiSteps.
-                    torch._foreach_add_(acc, torch._foreach_div(torch._foreach_sub(g, acc),
-                                                                n + 1))
+            with span("optim.accumulate", route):
+                if fused is not None:
+                    fused_adamw.accumulate(fused, n)
+                else:
+                    for names in _chunks(params):
+                        acc = [state["acc"][k] for k in names]
+                        g = [grads[k].float() for k in names]
+                        # acc + (g - acc) / (n + 1): the running mean, as optax.MultiSteps.
+                        torch._foreach_add_(acc, torch._foreach_div(
+                            torch._foreach_sub(g, acc), n + 1))
             state["mini_step"] = (n + 1) % self.every_k
             if n != self.every_k - 1:
                 return False
             grads = state["acc"]
-        clip_norm = None
+        norm = None
         if self.clip is not None:
-            with span("optim.clip"):
-                norm = (global_norm(list(grads.values())) if norm_fn is None
-                        else norm_fn(grads))
-            if not norm < self.clip:
-                clip_norm = norm
-        with span("optim.update"):
-            self._update(params, grads, state, chunks, clip_norm, noise, noise_fn)
+            with span("optim.clip", route):
+                if norm_fn is not None:
+                    norm = norm_fn(grads)
+                elif fused is not None:
+                    norm = global_norm_tensor(list(grads.values()))
+                else:
+                    norm = global_norm(list(grads.values()))
+        with span("optim.update", route):
+            if fused is None:
+                clip_norm = None if norm is None or norm < self.clip else norm
+                self._update(params, grads, state, _chunks(params), clip_norm, noise, noise_fn)
+            else:
+                fused_adamw.update(fused, self.hyper(state["count"], torch.float32), norm)
+                state["count"] += 1
         return True
+
+    def fused_step(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
+                   state: Dict[str, Any]) -> Optional[fused_adamw.Step]:
+        """The route rule: this apply's step for the kernels of
+        ``ops/fused_adamw.py``, or None for the foreach chain. The kernels
+        take AdamW or Adam with f32 moments (``mu_dtype`` None or float32,
+        no ``nu_dtype``), masters, moments and accumulators contiguous f32
+        on one CUDA device (:func:`fused_adamw.takes_state`, checked when a
+        plan is built for a state), and gradients contiguous f32 or bf16
+        there (:meth:`fused_adamw.Step.of`); SGD, Adafactor, a bf16 ``mu``,
+        ``nu_dtype`` and the CPU take the chain. A state made of other
+        tensors than the plan's gets a new plan."""
+        if (self.name not in ("AdamW", "Adam") or self.mu_dtype not in (None, torch.float32)
+                or self.nu_dtype is not None or not params
+                or not next(iter(params.values())).is_cuda):
+            return None
+        lists = ([params[k] for k in params], [state["mu"][k] for k in params],
+                 [state["nu"][k] for k in params],
+                 [state["acc"][k] for k in params] if self.every_k > 1 else None)
+        if self._plan is None or not self._plan.holds(*lists):
+            self._plan = fused_adamw.Plan(*lists) if fused_adamw.takes_state(*lists) else None
+        if self._plan is None:
+            return None
+        return fused_adamw.Step.of(self._plan, [grads[k] for k in params])
+
+    def hyper(self, count: int, mu_dtype: torch.dtype) -> fused_adamw.Hyper:
+        """The scalars of update ``count`` (updates applied before it) as the
+        foreach chain computes with them. optax computes b1 * mu in mu's
+        storage dtype, with b1 itself rounded to that dtype (a weakly typed
+        scalar): 0.8984375 for a bf16 mu."""
+        f32 = np.float32
+        b1 = float(torch.tensor(self.b1).to(mu_dtype))
+        return fused_adamw.Hyper(
+            b1=float(f32(b1)), one_minus_b1=float(f32(1 - self.b1)), b2=float(f32(self.b2)),
+            one_minus_b2=float(f32(1 - self.b2)),
+            bc1=float(f32(1) - f32(self.b1) ** f32(count + 1)),
+            bc2=float(f32(1) - f32(self.b2) ** f32(count + 1)), eps=float(f32(self.eps)),
+            weight_decay=float(f32(self.weight_decay)) if self.name == "AdamW" else 0.0,
+            neg_lr=-float(f32(self.lr_schedule(count))), clip=self.clip)
 
     def _update(self, params, grads, state, chunks: List[List[str]], clip_norm,
                 noise, noise_fn: Optional[Callable]) -> None:
@@ -275,28 +336,25 @@ class Optimizer:
             elif self.nu_dtype is not None:
                 upd = self._adam_lp(names, g, p, state, count + 1, noise, noise_fn)
             else:
-                upd = self._adam(g, p, [state["mu"][k] for k in names],
-                                 [state["nu"][k] for k in names], count + 1)
+                mu = [state["mu"][k] for k in names]
+                upd = self._adam(g, p, mu, [state["nu"][k] for k in names],
+                                 self.hyper(count, mu[0].dtype if mu else torch.float32))
             torch._foreach_add_(p, torch._foreach_mul(upd, -lr))
         if self.every_k > 1:
             for a in state["acc"].values():
                 a.zero_()
         state["count"] = count + 1
 
-    def _adam(self, g, p, mu, nu, count: int) -> List[torch.Tensor]:
-        b1, b2 = self.b1, self.b2
-        # optax computes b1 * mu in mu's storage dtype, with b1 itself rounded
-        # to that dtype (a weakly typed scalar): 0.8984375 for a bf16 mu.
-        b1_mu = float(torch.tensor(b1).to(mu[0].dtype)) if mu else b1
-        mu32 = torch._foreach_add(torch._foreach_mul(g, 1 - b1), torch._foreach_mul(mu, b1_mu))
-        nu32 = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(g, g), 1 - b2),
-                                  torch._foreach_mul(nu, b2))
-        bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
-        bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
-        denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu32, bc2)), self.eps)
-        upd = torch._foreach_div(torch._foreach_div(mu32, bc1), denom)
-        if self.name == "AdamW" and self.weight_decay:
-            upd = torch._foreach_add(upd, torch._foreach_mul(p, self.weight_decay))
+    @staticmethod
+    def _adam(g, p, mu, nu, h: fused_adamw.Hyper) -> List[torch.Tensor]:
+        mu32 = torch._foreach_add(torch._foreach_mul(g, h.one_minus_b1),
+                                  torch._foreach_mul(mu, h.b1))
+        nu32 = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(g, g), h.one_minus_b2),
+                                  torch._foreach_mul(nu, h.b2))
+        denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu32, h.bc2)), h.eps)
+        upd = torch._foreach_div(torch._foreach_div(mu32, h.bc1), denom)
+        if h.weight_decay:
+            upd = torch._foreach_add(upd, torch._foreach_mul(p, h.weight_decay))
         torch._foreach_copy_(mu, mu32)
         torch._foreach_copy_(nu, nu32)
         return upd
@@ -375,10 +433,16 @@ class Optimizer:
         return upd
 
 
-def global_norm(tensors: List[torch.Tensor]) -> float:
-    """sqrt(sum of squares) over every element of ``tensors``, in f32."""
+def global_norm_tensor(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt(sum of squares) over every element of ``tensors``, in f32, as a
+    0-dim tensor on their device."""
     norms = torch._foreach_norm(tensors, 2, dtype=torch.float32)
-    norm = torch.linalg.vector_norm(torch.stack(norms))
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def global_norm(tensors: List[torch.Tensor]) -> float:
+    """:func:`global_norm_tensor` read on the host."""
+    norm = global_norm_tensor(tensors)
     with sync("grad_norm"):
         return float(norm)
 

@@ -5,18 +5,22 @@ the card), with the kernel wrappers stubbed by counters, runs the run's
 work. A sampling count is affine in the step count, so it is counted at 1
 and 2 steps and taken to the run's steps. A training run is its steps'
 loss and backward at the config's batch plus its validation scenes, each a
-1 + 3-view ``engine.sample`` at the config's 70 steps."""
+1 + 3-view ``engine.sample`` at the config's 70 steps, plus its optimizer's
+fused-kernel launches over its steps."""
 
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 import chip_smoke
 from mvldm_tpu_torch import builder, config
 from mvldm_tpu_torch.diffusion.video_sampling import SceneViews, VideoSampler
 from mvldm_tpu_torch.models import layers
 from mvldm_tpu_torch.ops import attention as attn
-from mvldm_tpu_torch.ops import fused_attn, fused_ff
+from mvldm_tpu_torch.ops import fused_adamw, fused_attn, fused_ff
+from mvldm_tpu_torch.scripts.main import base_lr
+from mvldm_tpu_torch.training import build_lr_schedule, build_optimizer
 from mvldm_tpu_torch.training.trainer import batch_from_arrays
 
 NAMES = ("flash_attention", "fused_ln_self_attention", "fused_ln_geglu_ff")
@@ -176,6 +180,36 @@ def val_scene_launches(counts, overrides) -> dict:
     return {k: one[k] + (steps - 1) * (two[k] - one[k]) for k in counts}
 
 
+def optimizer_launches(monkeypatch, overrides, steps: int) -> dict:
+    """The fused-kernel launches of the run's optimizer (built from its
+    config as ``scripts.main`` builds it) over ``steps`` micro-steps, on a
+    small state of CUDA tensors (``FakeTensorMode``) with the kernels
+    stubbed by counters; where ``Optimizer.fused_step`` refuses the state,
+    the foreach chain runs and launches none."""
+    cfg = config.load_typed_root_config(config.compose(["+experiment=baseline", *overrides]))
+    tx = build_optimizer(cfg.optimizer, build_lr_schedule(base_lr(cfg), cfg.optimizer.scheduler),
+                         gradient_clip_val=cfg.trainer.gradient_clip_val,
+                         accumulate_grad_batches=cfg.trainer.accumulate_grad_batches)
+    counts = dict.fromkeys(chip_smoke.OPTIM_KERNELS, 0)
+
+    def counted(name):
+        def launch(*args):
+            counts[name] += 1
+        return launch
+
+    monkeypatch.setattr(fused_adamw, "accumulate", counted("fused_adamw_accumulate"))
+    monkeypatch.setattr(fused_adamw, "update", counted("fused_adamw_update"))
+    with FakeTensorMode():
+        params = {"w": torch.zeros(8, 6, device="cuda"), "b": torch.zeros(6, device="cuda")}
+        state = tx.init(params)
+        for _ in range(steps):
+            grads = {k: torch.zeros_like(p, dtype=torch.bfloat16) for k, p in params.items()}
+            if tx.fused_step(params, grads, state) is None:
+                break
+            tx.apply(params, grads, state)
+    return counts
+
+
 # run: (config overrides, training steps, validation scenes, from the latent cache)
 TRAIN_RUNS = {
     "train": ([], 4, 2 * 2, False),                # (f): hooks at steps 2 and 4, 2 scenes each
@@ -189,10 +223,11 @@ TRAIN_RUNS = {
 
 
 @pytest.mark.parametrize("run", list(TRAIN_RUNS))
-def test_chip_smoke_training_cli_launch_counts_are_the_plans(kernel_counters, run):
+def test_chip_smoke_training_cli_launch_counts_are_the_plans(kernel_counters, monkeypatch, run):
     overrides, steps, scenes, latents = TRAIN_RUNS[run]
     step = train_step_launches(kernel_counters, overrides, latents)
     scene = val_scene_launches(kernel_counters, overrides)
     plan = {k: steps * step[k] + scenes * scene[k] for k in TRAIN_NAMES}
+    plan.update(optimizer_launches(monkeypatch, overrides, steps))
     assert plan == chip_smoke.TRAIN_CLI_LAUNCHES[run]
     assert all(plan[k] for k in TRAIN_NAMES if steps)
