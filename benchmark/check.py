@@ -32,8 +32,7 @@ import torch
 
 from . import traffic, weights
 from .program import dtype_of
-from .reference import sampling, training
-from .reference.model import Model
+from .reference import reference_of, sampling, training
 from .reference.numerics import Numerics, no_tf32
 
 # The stream of the run's seed that draws the check's sample.
@@ -41,11 +40,12 @@ SAMPLE_STREAM = 3 << 20
 LEAF_FLOOR = 1e-3
 
 
-def reference_model(config: Dict, seed: int, device, fp8: bool = False) -> Model:
-    """The reference in float32 with the benchmark's seeded weights (as
-    served: rounded to the configuration's type)."""
+def reference_model(config: Dict, seed: int, device, fp8: bool = False) -> torch.nn.Module:
+    """The configuration's reference (``reference_of``) in float32 with the
+    benchmark's seeded weights (as served: rounded to the configuration's
+    type)."""
     with torch.device("meta"):
-        model = Model(config["model"], Numerics(fp8))
+        model = reference_of(config).Model(config["model"], Numerics(fp8))
     model = model.to_empty(device=device)
     made = weights.make(weights.spec(model.named_parameters()), seed, device, dtype_of(config))
     with torch.no_grad():
@@ -78,7 +78,7 @@ def sample_rows(mix: Dict, plan: List[sampling.Launch], gen: np.random.Generator
     return rows
 
 
-def launch_row(model: Model, ddim, cfg_scale: float, served, plan, i: int, r: int,
+def launch_row(model: torch.nn.Module, ddim, cfg_scale: float, served, plan, i: int, r: int,
                frame_of) -> Dict[int, np.ndarray]:
     """The reference's frames of row ``r`` of launch ``i`` of a served scene
     (target position -> uint8 frame), its context taken from the inputs

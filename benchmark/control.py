@@ -13,6 +13,11 @@
   program's place with half of each micro-batch left out, the mean taken
   over the rest.
 
+Each kind of traffic takes its control's and faults' readings from its
+module's ``control(config, mix, seed, device, fault)`` (``kinds/<kind>.py``;
+``fault`` is ``--fault`` or None): the sampling kinds from
+:func:`control_sampling`, ``train`` from :func:`control_training`.
+
 One JSON line a reading goes to standard output. The benchmark's own runs
 never run this. Needs a CUDA device, as the cells do.
 """
@@ -25,7 +30,7 @@ import math
 import sys
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 if __name__ == "__main__":
     sys.path[0] = str(Path(__file__).resolve().parent.parent)
@@ -52,9 +57,13 @@ def _draws_for(plan: List[sampling.Launch], hw: int, latent: int, num_anchors: i
     return out
 
 
-def control_sampling(config: Dict, mix: Dict, seed: int, device) -> Dict[str, float]:
+def control_sampling(config: Dict, mix: Dict, seed: int, device,
+                     fault: Optional[str] = None) -> Dict[str, float]:
     """The fp8 reference serves the sampled launch rows of one scene (or
-    the check's requests); the float32 reference judges them."""
+    the check's requests); the float32 reference judges them. A sampling
+    cell has no planted fault besides the fp8 control."""
+    if fault not in (None, "fp8"):
+        raise ValueError(f"a {mix['kind']} cell has no planted fault {fault!r}")
     ref = check.reference_model(config, seed, device)
     low = check.reference_model(config, seed, device, fp8=True)
     ddim = sampling.DDIM.from_cfg(config["model"]["scheduler"])
@@ -103,7 +112,12 @@ def train_draws(mix: Dict, config: Dict, n: int, gen: torch.Generator, device) -
     return out
 
 
-def control_training(config: Dict, mix: Dict, seed: int, device, fault: str) -> Dict[str, float]:
+def control_training(config: Dict, mix: Dict, seed: int, device,
+                     fault: Optional[str] = None) -> Dict[str, float]:
+    """The fp8 reference (``fault`` None or ``fp8``) or the float32 one with
+    half of each micro-batch left out (``half_batch``) trains in the
+    program's place; the float32 reference judges it."""
+    fault = fault or "fp8"
     n = mix["check_updates"] * config["trainer"]["accumulate_grad_batches"]
     draws = train_draws(mix, config, n, torch.Generator(device).manual_seed(seed), device)
     want = check.reference_training(config, mix, seed, device, draws)
@@ -111,6 +125,13 @@ def control_training(config: Dict, mix: Dict, seed: int, device, fault: str) -> 
     got = check.reference_training(config, mix, seed, device, draws, fp8=(fault == "fp8"),
                                    half_batch=(fault == "half_batch"))
     return check.compare_training(got, want, config["trainer"]["accumulate_grad_batches"])
+
+
+def readings(config: Dict, mix: Dict, seed: int, device,
+             fault: Optional[str] = None) -> Dict[str, float]:
+    """The control's or a planted fault's readings on one seed, from the
+    kind's own ``control``."""
+    return harness.load_kind(mix["kind"]).control(config, mix, seed, device, fault)
 
 
 def main() -> int:
@@ -146,11 +167,8 @@ def main() -> int:
         check.free()
     for seed in seeds[:args.control]:
         t0 = time.perf_counter()
-        if mix["kind"] == "train":
-            readings = control_training(config, mix, seed, "cuda", args.fault or "fp8")
-        else:
-            readings = control_sampling(config, mix, seed, "cuda")
-        emit(args.fault or "control_fp8", seed, readings, t0)
+        emit(args.fault or "control_fp8", seed, readings(config, mix, seed, "cuda", args.fault),
+             t0)
         check.free()
     return 0
 

@@ -1,7 +1,8 @@
 """Model FLOPs, counted by ``torch.utils.flop_counter.FlopCounterMode`` on
-the plain reference model built on the meta device: the same count
-whatever implements a layer in the program (its hand kernels launch
-outside PyTorch's dispatcher, where no counter sees them).
+the configuration's plain reference model (``reference.reference_of``)
+built on the meta device: the same count whatever implements a layer in
+the program (its hand kernels launch outside PyTorch's dispatcher, where
+no counter sees them).
 """
 
 from __future__ import annotations
@@ -12,17 +13,18 @@ from typing import Dict
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from .reference.model import Model, unet_in_channels
+from .reference import reference_of
 
 
 class Counter:
-    """FLOPs of the reference model of ``model_cfg`` at given shapes."""
+    """FLOPs of the reference model of ``config`` (a configuration file's
+    whole content) at given shapes."""
 
-    def __init__(self, model_cfg: Dict):
+    def __init__(self, config: Dict):
+        self.reference = reference_of(config)
+        self.model_cfg = config["model"]
         with torch.device("meta"):
-            self.model = Model(model_cfg)
-        self.c_in = unet_in_channels(model_cfg)
-        self.latent = model_cfg["autoencoder"]["kwargs"]["latent_channels"]
+            self.model = self.reference.Model(self.model_cfg)
         self.unet = lru_cache(maxsize=None)(self._unet)
         self.encode = lru_cache(maxsize=None)(self._encode)
         self.decode = lru_cache(maxsize=None)(self._decode)
@@ -35,14 +37,14 @@ class Counter:
 
     def _unet(self, b: int, v: int, hw: int, backward: bool = False) -> float:
         """One UNet forward over b rows of v views of hw x hw latents (and
-        its backward to the weights and the input)."""
-        x = torch.empty(b, v, hw, hw, self.c_in, device="meta", requires_grad=backward)
-        t = torch.zeros(b, v, dtype=torch.int64, device="meta")
+        its backward to the weights and the input), on the inputs of the
+        reference's ``unet_inputs``."""
+        inputs = self.reference.unet_inputs(self.model_cfg, b, v, hw, backward)
 
         def run():
             self.model.requires_grad_(backward)
             with torch.set_grad_enabled(backward):
-                out = self.model.denoiser(x, t)
+                out = self.model.denoiser(*inputs)
                 if backward:
                     out.sum().backward()
 
@@ -56,7 +58,8 @@ class Counter:
 
     def _decode(self, n: int, hw: int) -> float:
         self.model.requires_grad_(False)
-        z = torch.empty(n, hw // 8, hw // 8, self.latent, device="meta")
+        latent = self.model_cfg["autoencoder"]["kwargs"]["latent_channels"]
+        z = torch.empty(n, hw // 8, hw // 8, latent, device="meta")
         with torch.no_grad():
             return self._count(lambda: self.model.autoencoder.decode(z))
 

@@ -89,7 +89,8 @@ def result_line(correct: bool, attempted: int, failed: int, metrics: Dict, devic
 
 def load_kind(kind: str):
     """``kinds/<kind>.py``: the loop of a traffic kind (``drive``), its
-    model FLOPs (``flops``) and its check of ``correct`` (``check``)."""
+    model FLOPs (``flops``), its check of ``correct`` (``check``) and
+    its control's readings (``control``, read by ``control.py``)."""
     if not (HERE / "kinds" / f"{kind}.py").is_file():
         raise KeyError(f"no loop for traffic kind {kind!r} (kinds/{kind}.py is missing)")
     return importlib.import_module(f"benchmark.kinds.{kind}")
@@ -102,7 +103,7 @@ def reading_context(run, loop, config: Dict, mix: Dict) -> Dict:
     from .flops import Counter
 
     return {"kind": run.kind, "unit": run.unit, "window_s": run.window_s, "done": run.done,
-            "flops": loop.flops(Counter(config["model"]), run, config, mix),
+            "flops": loop.flops(Counter(config), run, config, mix),
             "profiled": run.profiled}
 
 
@@ -116,7 +117,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
     import torch
 
     from . import check, program, traffic, weights
-    from .reference.model import Model
+    from .reference import reference_of
 
     t_start = time.perf_counter() if t_start is None else t_start
     spec = spec or load_spec()
@@ -125,7 +126,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
     mix = mix or traffic.load(cell["traffic"])
     limits = limits or load_limits(name)
     with torch.device("meta"):
-        shapes = weights.spec(Model(config["model"]).named_parameters())
+        shapes = weights.spec(reference_of(config).Model(config["model"]).named_parameters())
 
     on_card = torch.device(device).type == "cuda"
     system = program.System(config, shapes, seed, device)

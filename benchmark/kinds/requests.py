@@ -11,9 +11,10 @@ from typing import Dict
 
 import numpy as np
 
-from .. import check as checks, program, traffic
+from .. import check as checks, control as controls, program, traffic
 
 check = checks.check_sampling  # the kind's check of ``correct``
+control = controls.control_sampling  # the control's and faults' readings
 flops = program.sampling_flops  # the kind's model FLOPs
 UNIT = "requests"
 PROFILED = 8  # requests in a traced run's profiled part

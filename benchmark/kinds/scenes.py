@@ -12,9 +12,10 @@ from __future__ import annotations
 import time
 from typing import Dict, List
 
-from .. import check as checks, program, traffic
+from .. import check as checks, control as controls, program, traffic
 
 check = checks.check_sampling  # the kind's check of ``correct``
+control = controls.control_sampling  # the control's and faults' readings
 flops = program.sampling_flops  # the kind's model FLOPs
 UNIT = "frames"
 

@@ -14,10 +14,11 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from .. import check as checks, program, traffic, weights
+from .. import check as checks, control as controls, program, traffic, weights
 from ..reference.training import TrainRecord
 
 check = checks.check_training  # the kind's check of ``correct``
+control = controls.control_training  # the control's and faults' readings
 UNIT = "micro-steps"
 PROFILED = 4  # micro-steps in a traced run's profiled part
 

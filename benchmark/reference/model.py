@@ -605,3 +605,13 @@ def unet_in_channels(model_cfg: Dict) -> int:
     if model_cfg["use_ray_encoding"] or model_cfg["srt_ray_encoding"]:
         raise ValueError("the reference takes the raw 3 + 3 ray channels only")
     return model_cfg["autoencoder"]["kwargs"]["latent_channels"] + 6 + 1
+
+
+def unet_inputs(model_cfg: Dict, b: int, v: int, hw: int, backward: bool = False):
+    """``(x, t)`` of one denoiser forward on the meta device: latents with
+    their ray and mask channels, (b, v, hw, hw, c_in), and every view's
+    timestep, (b, v)."""
+    x = torch.empty(b, v, hw, hw, unet_in_channels(model_cfg), device="meta",
+                    requires_grad=backward)
+    t = torch.zeros(b, v, dtype=torch.int64, device="meta")
+    return x, t

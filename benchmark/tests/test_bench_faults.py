@@ -82,13 +82,19 @@ def test_half_the_batch_left_out_is_caught():
 
 @pytest.mark.parametrize("traffic_name", ["video80", "nvs4"])
 def test_the_control_fails_the_sampling_check(traffic_name):
-    readings = control.control_sampling(tiny_config(), tiny_mix(traffic_name), SEED, "cpu")
+    readings = control.readings(tiny_config(), tiny_mix(traffic_name), SEED, "cpu")
     assert readings["frame_rms"] > LIMITS["frame_rms"]
+
+
+@pytest.mark.parametrize("traffic_name", ["video80", "nvs4"])
+def test_a_sampling_cell_has_no_half_batch(traffic_name):
+    with pytest.raises(ValueError, match="no planted fault"):
+        control.readings(tiny_config(), tiny_mix(traffic_name), SEED, "cpu", "half_batch")
 
 
 @pytest.mark.parametrize("fault", ["fp8", "half_batch"])
 def test_the_control_and_the_half_batch_fail_the_training_check(fault):
-    readings = control.control_training(tiny_config(), tiny_mix("train_b6"), SEED, "cpu", fault)
+    readings = control.readings(tiny_config(), tiny_mix("train_b6"), SEED, "cpu", fault)
     assert any(readings[k] > LIMITS[k] for k in readings), readings
 
 

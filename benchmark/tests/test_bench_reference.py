@@ -81,12 +81,12 @@ def test_flop_count_is_the_same_whichever_attention_the_port_takes(monkeypatch):
     import mvldm_tpu_torch.models.layers as layers
 
     config = tiny_config()
-    before = Counter(config["model"]).unet(2, 3, 8)
+    before = Counter(config).unet(2, 3, 8)
     monkeypatch.setattr(layers, "use_fused", lambda c, dtype: False)
-    after = Counter(config["model"]).unet(2, 3, 8)
+    after = Counter(config).unet(2, 3, 8)
     assert before == after > 0
     # Two views attend jointly, so a scene of two costs more than two of one.
-    assert Counter(config["model"]).unet(1, 2, 8) > 2 * Counter(config["model"]).unet(1, 1, 8)
+    assert Counter(config).unet(1, 2, 8) > 2 * Counter(config).unet(1, 1, 8)
 
 
 def test_the_fp8_control_rounds_in_the_forward_only():
