@@ -13,7 +13,10 @@ Phases, each fatal on failure (non-zero exit, no final result line):
    the libraries' SASS (cuobjdump), and none of the FFMA bodies they
    replaced (flash_fwd_f32, gemm_f32, matmul_f32_kernel) may be left.
 2. one phase per kernel of sampling and training at the main paths'
-   shapes: the kernel against its plain PyTorch version computed in f32 on
+   shapes (MVDream's text-to-multiview shapes among them: the flash
+   forward's text attention onto 77 keys and joint attentions, the fused
+   blocks on 4 views' joint sequences): the kernel against its plain
+   PyTorch version computed in f32 on
    the same bf16 inputs (see ``check``), device times of both (CUDA graph
    replay between CUDA events), the lower bound max(flops / 989 TFLOP/s,
    bytes / 3.35 TB/s) of an H100 SXM, and for attention the time of
@@ -161,6 +164,16 @@ Phases, each fatal on failure (non-zero exit, no final result line):
    ``assets/mvldm_1.0_manifest.json``, ``scripts.verify_parity`` smoke at
    ``+experiment=baseline`` (f32) writing a finite fixture and its fixture
    mode passing. It runs last.
+16. t2mv: MVDream's text-to-multiview path (``models/mvdream.py``, built
+   from the benchmark's ``mvdream-sd21-4view`` configuration with seeded
+   weights, bf16): one ``DiffusionEngine.text_to_multiview`` dispatch of
+   4 prompts x 4 views at 256 px (50 DDIM steps, one batched-CFG UNet call
+   of 8 rows a step) from zeroed launch counters, its frames uint8 and not
+   constant, every forward kernel's launches exactly T2MV_LAUNCHES and no
+   f32-route launch; a second dispatch timed; then one batched-CFG UNet
+   forward (1 prompt: 2 rows x 4 views, 32x32 latents, text and cameras)
+   on the card in bf16 against the host in f32 (UNET_REL_L2_BOUND). It
+   runs after phase 6, before phase 11.
 
 Every result is one JSON line. The last two lines are the card as
 ``nvidia-smi`` names it and ``{"ok": true, "device": {...}}``.
@@ -221,6 +234,17 @@ CLI_LAUNCHES = {
                  "fused_ln_geglu_ff": 200},
 }
 CLI_FRAMES = 24  # frames a synthetic scene of the cli phase holds
+# MVDream's text-to-multiview dispatch (the t2mv phase): the configuration
+# it builds, and the forward-kernel launches of one dispatch of 4 prompts x
+# 4 views, 50 steps (tests/test_torch_port_launch_plan.py counts them again
+# on the meta device): a step runs 16 text attentions, 6 joint attentions
+# at C = 1280 on the flash forward and 10 fused blocks of each kind; the
+# decode adds the VAE's mid-block attention.
+MVDREAM_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark",
+                              "configs", "mvdream-sd21-4view.json")
+T2MV_PROMPTS, T2MV_VIEWS = 4, 4
+T2MV_LAUNCHES = {"flash_attention": 1101, "fused_ln_self_attention": 500,
+                 "fused_ln_geglu_ff": 500}
 # Kernel launches of each run of the cli_train phase, as the training CLI's
 # launch plan takes them (tests/test_torch_port_launch_plan.py counts them
 # again on the meta device): a training step at batch 6 launches 26 / 8 / 8
@@ -327,13 +351,19 @@ def attention_phase(card: str, gen) -> dict:
     import torch.nn.functional as F
 
     from mvldm_tpu_torch.ops.attention import attention_reference, flash_attention
-    from mvldm_tpu_torch.tools.kernel_compare import SAMPLING_SHAPES, attn_inputs
+    from mvldm_tpu_torch.tools.kernel_compare import (
+        SAMPLING_SHAPES,
+        T2MV_FLASH_SHAPES,
+        attn_inputs,
+    )
 
     n_sms = sm_count()
     headline = None
     max_err = 0.0
-    for label, b, h, l, d, with_bias in SAMPLING_SHAPES:
-        q, k, v, bias = attn_inputs(gen, b, h, l, d, with_bias)
+    cases = ([(label, b, h, l, l, d, bias) for label, b, h, l, d, bias in SAMPLING_SHAPES]
+             + [(*shape, False) for shape in T2MV_FLASH_SHAPES])
+    for label, b, h, l, lk, d, with_bias in cases:
+        q, k, v, bias = attn_inputs(gen, b, h, l, d, with_bias, lk)
         out = flash_attention(q, k, v, bias)
         ref = attention_reference(q.float(), k.float(), v.float(), bias)
         acc = check(out, ref, f"flash_attention {label}")
@@ -345,12 +375,12 @@ def attention_phase(card: str, gen) -> dict:
         mask = None if bias is None else bias[:, None, None, :].to(q.dtype)
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
                          iters)
-        bound_ms, bound_by = bound(4.0 * b * h * l * l * d, nbytes(q, k, v, bias, out))
+        bound_ms, bound_by = bound(4.0 * b * h * l * lk * d, nbytes(q, k, v, bias, out))
         rec = dict(phase="kernel", kernel="flash_attention", shape=label,
-                   B=b, H=h, L=l, D=d, bias=with_bias, **acc, ms=ms,
+                   B=b, H=h, L=l, Lk=lk, D=d, bias=with_bias, **acc, ms=ms,
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                    bound_by=bound_by, sm_mhz=sm_mhz, n_sms=n_sms,
-                   exp_floor_ms=exp_floor_ms(b * h * l * l, sm_mhz, n_sms), card=card)
+                   exp_floor_ms=exp_floor_ms(b * h * l * lk, sm_mhz, n_sms), card=card)
         emit(**rec)
         headline = headline or rec
         del q, k, v, out, ref
@@ -388,13 +418,14 @@ def fused_attn_phase(card: str, gen) -> dict:
     )
     from mvldm_tpu_torch.tools.kernel_compare import (
         ATTN_BLOCK_SHAPES,
+        T2MV_ATTN_BLOCK_SHAPES,
         attn_block_gemms,
         attn_block_inputs,
     )
 
     headline = None
     max_err = 0.0
-    for label, n, l, c, heads, d in ATTN_BLOCK_SHAPES:
+    for label, n, l, c, heads, d in ATTN_BLOCK_SHAPES + T2MV_ATTN_BLOCK_SHAPES:
         hd = heads * d
         inputs = attn_block_inputs(gen, n, l, c, heads, d)
         x, g, b, wq, wk, wv, wo, bo = inputs
@@ -429,13 +460,14 @@ def fused_ff_phase(card: str, gen) -> dict:
     )
     from mvldm_tpu_torch.tools.kernel_compare import (
         FF_BLOCK_SHAPES,
+        T2MV_FF_BLOCK_SHAPES,
         ff_block_gemms,
         ff_block_inputs,
     )
 
     headline = None
     max_err = 0.0
-    for label, n, l, c in FF_BLOCK_SHAPES:
+    for label, n, l, c in FF_BLOCK_SHAPES + T2MV_FF_BLOCK_SHAPES:
         args = ff_block_inputs(gen, n, l, c)
         x, g, b, w1, b1, w2, b2 = args
         out = fused_ln_geglu_ff(*args)
@@ -1330,6 +1362,82 @@ def scene_batch_checks(card: str, engine) -> None:
          "latents and noise, relative L2)", **record, bound=SCENE_BATCH_REL_L2_BOUND, card=card)
     if not all(r <= SCENE_BATCH_REL_L2_BOUND for r in rels):
         fail(f"S = 2 against S = 1: rel L2 {rels} > {SCENE_BATCH_REL_L2_BOUND}")
+
+
+# ------------------------------------------------------------------ t2mv
+
+def build_mvdream(device, dtype: torch.dtype = torch.bfloat16, steps=None):
+    """MVDream's engine (MVDREAM_CONFIG's ``model``, ``steps`` DDIM steps
+    when given) through ``builder.build_engine``: seeded weights on
+    ``device`` in ``dtype``, shapes only on the meta device."""
+    from mvldm_tpu_torch.builder import build_engine
+    from mvldm_tpu_torch.config import RootCfg, from_dict
+
+    with open(MVDREAM_CONFIG) as f:
+        model = json.load(f)["model"]
+    if steps is not None:
+        model["scheduler"]["num_inference_steps"] = steps
+    return build_engine(from_dict(RootCfg, {"model": model}), device, dtype)
+
+
+def t2mv_inputs(p: int, device, seed: int = 0):
+    """P prompts' (77, 1024) text tokens, the empty prompt's, (P, 4, 16)
+    cameras and (P, 4, 32, 32, 4) initial noise, seeded, on ``device``."""
+    gen = torch.Generator().manual_seed(seed)
+    text = torch.randn((p, 77, 1024), generator=gen)
+    empty = torch.randn((77, 1024), generator=gen)
+    cameras = torch.randn((p, T2MV_VIEWS, 16), generator=gen)
+    noise = torch.randn((p, T2MV_VIEWS, 32, 32, 4), generator=gen)
+    return tuple(t.to(device) for t in (text, empty, cameras, noise))
+
+
+def t2mv_phase(card: str, kernels, f32_kernels) -> dict:
+    """MVDream's text-to-multiview dispatch with launch counters, a timed
+    second one, and the UNet's batched-CFG forward against the host."""
+    engine = build_mvdream("cuda")
+    for fn in kernels + f32_kernels:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    frames = engine.gather_frames(engine.text_to_multiview(*t2mv_inputs(T2MV_PROMPTS, "cpu")))
+    cold_s = time.perf_counter() - t0
+    launches, f32_launches = _counts(kernels), _counts(f32_kernels)
+    if frames.dtype != np.uint8 or frames.shape != (T2MV_PROMPTS, T2MV_VIEWS, 256, 256, 3):
+        fail(f"text_to_multiview returned {frames.dtype} {frames.shape}")
+    if any(f.min() == f.max() for f in frames.reshape(-1, 256, 256, 3)):
+        fail("text_to_multiview returned a constant frame")
+    if launches != T2MV_LAUNCHES:
+        fail(f"a t2mv dispatch launched {launches}, not {T2MV_LAUNCHES}")
+    if any(f32_launches.values()):
+        fail(f"the bf16 t2mv path launched f32 kernels: {f32_launches}")
+    t0 = time.perf_counter()
+    engine.gather_frames(engine.text_to_multiview(*t2mv_inputs(T2MV_PROMPTS, "cpu", 1)))
+    warm_s = time.perf_counter() - t0
+    emit(phase="t2mv", what="MVDream text_to_multiview, 4 prompts x 4 views, 256 px, 50 DDIM "
+         "steps, batched CFG 10, bf16, seeded weights", first_pass_s=cold_s,
+         second_pass_s=warm_s, frames_per_s=T2MV_PROMPTS * T2MV_VIEWS / warm_s,
+         launches=launches, f32_launches=f32_launches,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+         frame_mean=float(frames.mean()), card=card)
+
+    t0 = time.perf_counter()
+    cpu_engine = build_mvdream("cpu", torch.float32)
+    text, empty, cameras, noise = t2mv_inputs(1, "cpu", 2)
+    x = torch.cat([noise, noise])
+    t = torch.full((2, T2MV_VIEWS), 500)
+    context = torch.cat([text, empty[None]])
+    cameras = torch.cat([cameras, cameras])
+    with torch.inference_mode():
+        gpu = engine.unet(x.cuda(), t.cuda(), context.cuda(), cameras.cuda()).float().cpu()
+        cpu = cpu_engine.unet(x, t, context, cameras)
+    rel = (torch.linalg.norm(gpu - cpu) / torch.linalg.norm(cpu)).item()
+    emit(phase="t2mv_unet_parity", what="MVDream batched-CFG UNet forward, 2 rows x 4 views, "
+         "32x32 latents, 77 text tokens, cameras: card bf16 kernels vs host f32 plain",
+         rel_l2=rel, bound=UNET_REL_L2_BOUND, cpu_side_s=time.perf_counter() - t0,
+         finite=bool(torch.isfinite(gpu).all()), card=card)
+    if not torch.isfinite(gpu).all() or not rel <= UNET_REL_L2_BOUND:
+        fail(f"MVDream UNet parity rel L2 {rel:.4g} > {UNET_REL_L2_BOUND}")
+    return launches
 
 
 # -------------------------------------------------------------- training
@@ -2784,6 +2892,8 @@ def main() -> int:
     scene_batch_checks(card, engine)
     del engine
     torch.cuda.empty_cache()
+    t2mv_launches = t2mv_phase(card, forward, F32_KERNELS)
+    torch.cuda.empty_cache()
     cli_launches = cli_phase(card, forward, F32_KERNELS)
     ddpm_step_check(card)
     standard_unet_parity(card, unet_inputs)
@@ -2836,6 +2946,7 @@ def main() -> int:
     }
     def bf16_paths(name: str) -> dict:
         return {"sampling": sampling_launches.get(name, 0), "training": train_launches[name],
+                "t2mv": t2mv_launches.get(name, 0),
                 **{f"cli_{run}": counts.get(name, 0) for run, counts in cli_launches.items()},
                 **{f"cli_{run}": counts[name] for run, counts in cli_train_launches.items()},
                 **{f"cli_{run}": counts[name] for run, counts in variant_launches.items()},

@@ -33,6 +33,7 @@ import torch.nn as nn
 from .diffusion.engine import Batch, DiffusionEngine, ModelCfg, unet_in_channels
 from .diffusion.schedulers import DDIMScheduler, DDIMSchedulerKwargs, get_scheduler
 from .models.mv_attention import SpatialTransformer3DCfg
+from .models.mvdream import MVDreamUNet
 from .models.unet import MultiViewUNet, MultiViewUNetCfg
 from .models.vae import AutoencoderCfg, AutoencoderKL, AutoencoderKLCfg
 
@@ -42,15 +43,21 @@ IMAGE_HW = 256
 
 class MVLDM(nn.Module):
     """Holder with the reference Lightning checkpoint's module tree:
-    ``denoiser`` (UNet + cross-view blocks) and ``autoencoder``."""
+    ``denoiser`` (UNet + cross-view blocks, or MVDream's UNet when the
+    denoiser's ``name`` is "mvdream") and ``autoencoder``."""
 
     def __init__(self, model_cfg: ModelCfg, remat: bool = False,
                  remat_policy: Optional[str] = None):
         super().__init__()
-        self.denoiser = MultiViewUNet(model_cfg.denoiser,
-                                      in_channels=unet_in_channels(model_cfg),
-                                      out_channels=4, remat=remat,
-                                      remat_policy=remat_policy)
+        if model_cfg.denoiser.name == "mvdream":
+            if remat or remat_policy is not None:
+                raise ValueError("MVDream's UNet has no remat")
+            self.denoiser = MVDreamUNet(model_cfg.denoiser)
+        else:
+            self.denoiser = MultiViewUNet(model_cfg.denoiser,
+                                          in_channels=unet_in_channels(model_cfg),
+                                          out_channels=4, remat=remat,
+                                          remat_policy=remat_policy)
         self.autoencoder = AutoencoderKL(model_cfg.autoencoder.kwargs)
 
 

@@ -19,13 +19,15 @@ unconditional row's context views masked out of the joint attention), and
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..geometry.camera_utils import absolute_to_relative_camera
 from ..geometry.projection import get_world_rays, sample_image_grid
 from ..models.encodings import positional_encoding, srt_ray_encode
+from ..models.mvdream import MVDreamUNetCfg
 from ..models.unet import MultiViewUNet, MultiViewUNetCfg
 from ..models.vae import AutoencoderCfg, AutoencoderKL, DiagonalGaussian
 from ..utils.profiling import span, sync
@@ -47,7 +49,8 @@ class ModelCfg:
     sampling; ``use_ddim_scheduler`` and the xformers switch are read by
     nothing, there as here."""
 
-    denoiser: MultiViewUNetCfg = field(default_factory=MultiViewUNetCfg)
+    denoiser: Union[MultiViewUNetCfg, MVDreamUNetCfg] = field(
+        default_factory=MultiViewUNetCfg)
     scheduler: Optional[SchedulerCfg] = None
     autoencoder: AutoencoderCfg = field(default_factory=AutoencoderCfg)
     ray_encodings: RayEncodingsCfg = field(default_factory=RayEncodingsCfg)
@@ -407,3 +410,56 @@ class DiffusionEngine:
         latents = self.sample_latents(context_latents, extrinsics, intrinsics,
                                       num_target_views, generator, initial_noise)
         return self.decode_latents(latents)
+
+    # -------------------------------------------------------- text to views
+
+    @torch.inference_mode()
+    def text_to_multiview(self, text: torch.Tensor, empty_text: torch.Tensor,
+                          cameras: torch.Tensor, initial_noise: torch.Tensor) -> torch.Tensor:
+        """MVDream's text-to-multiview sampling (its ``t2i``): P prompts'
+        text tokens (P, Lt, c_ctx), the empty prompt's (Lt, c_ctx), each
+        prompt's V cameras (P, V, camera_dim: flattened camera-to-world
+        matrices) and the initial noise (P, V, h, w, c) -> (P, V, 8h, 8w, 3)
+        uint8 frames on the device, truncated as ``VideoSampler``
+        quantizes; :meth:`gather_frames` brings them to the host.
+
+        DDIM (eta 0) over the scheduler's timesteps with guidance
+        (``use_cfg``): a step is one UNet call of 2P rows, the prompts' and
+        then the empty prompt's, as MVDream's DDIM sampler batches it. The
+        inputs are uploaded once (``sync.t2mv_upload``); no step holds the
+        host."""
+        if not self.cfg.use_cfg:
+            raise ValueError("text_to_multiview samples with guidance (use_cfg)")
+        p, v = cameras.shape[:2]
+        steps = self.scheduler.timesteps()
+        with span("engine.t2mv", {"prompts": p, "views": v, "steps": len(steps)}):
+            with sync("t2mv_upload"):
+                text, empty_text, cameras, noise = (
+                    t.to(self.device) for t in (text, empty_text, cameras, initial_noise))
+            x_t = noise.float() * self.scheduler.init_noise_sigma
+            context = torch.cat([text, empty_text.expand(p, -1, -1)])
+            cameras = torch.cat([cameras, cameras])
+            for ts in steps:
+                x_t = self.text_denoise_step(x_t, int(ts), context, cameras)
+            return (self.decode_latents(x_t) * 255.0).to(torch.uint8)
+
+    @torch.inference_mode()
+    def text_denoise_step(self, x_t: torch.Tensor, ts: int, context: torch.Tensor,
+                          cameras: torch.Tensor) -> torch.Tensor:
+        """One step of :meth:`text_to_multiview`: x_t (P, V, h, w, c) f32 ->
+        x_{t-1} in f32. ``context`` and ``cameras`` hold 2P rows, the
+        prompts' first; guidance is combined in f32."""
+        p = x_t.shape[0]
+        inputs = self.scheduler.scale_model_input(x_t, ts).to(self.dtype)
+        inputs = torch.cat([inputs, inputs])
+        timesteps = torch.full(inputs.shape[:2], ts, dtype=torch.int64, device=x_t.device)
+        with span("engine.unet", {"branch": "batched"}):
+            eps = self.unet(inputs, timesteps, context, cameras).float()
+        eps = eps[p:] + self.cfg.cfg_scale * (eps[:p] - eps[p:])
+        return self.scheduler.step(eps, ts, x_t.float())
+
+    @staticmethod
+    def gather_frames(frames: torch.Tensor) -> np.ndarray:
+        """:meth:`text_to_multiview`'s frames on the host (``sync.t2mv_gather``)."""
+        with sync("t2mv_gather"):
+            return frames.cpu().numpy()

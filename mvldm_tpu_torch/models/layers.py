@@ -19,12 +19,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.attention import attention
+from ..ops.attention import attention, text_cross_attention
 from ..ops.fused_attn import fused_ln_self_attention, use_fused
 from ..ops.fused_ff import fused_ln_geglu_ff, ln_geglu_ff_decomposed
 from ..parallel.tp import get_model_mesh, view_parallel
 
-LN_EPS = 1e-6  # flax nn.LayerNorm default, used by every transformer norm
+LN_EPS = 1e-6  # flax nn.LayerNorm default: MV-LDM's transformer norms
 
 
 def timestep_embedding(
@@ -131,7 +131,9 @@ def _merge_heads(t: torch.Tensor) -> torch.Tensor:
 
 class CrossAttention(nn.Module):
     """SD-convention attention: bias-free to_q/to_k/to_v, biased to_out.0.
-    ``context=None`` attends over ``x`` itself."""
+    ``context=None`` attends over ``x`` itself (with an optional key
+    bias); a ``context`` of text tokens goes through
+    :func:`text_cross_attention`."""
 
     def __init__(self, query_dim: int, context_dim: int, num_heads: int,
                  head_dim: int):
@@ -152,11 +154,14 @@ class CrossAttention(nn.Module):
             # attention output is 0 and the block is exactly its to_out bias.
             b, lq, _ = x.shape
             return self.to_out[0].bias.expand(b, lq, -1)
-        context = x if context is None else context
+        kv = x if context is None else context
         q = _split_heads(self.to_q(x), self.num_heads)
-        k = _split_heads(self.to_k(context), self.num_heads)
-        v = _split_heads(self.to_v(context), self.num_heads)
-        out = attention(q, k, v, bias=key_bias)
+        k = _split_heads(self.to_k(kv), self.num_heads)
+        v = _split_heads(self.to_v(kv), self.num_heads)
+        if context is None:
+            out = attention(q, k, v, bias=key_bias)
+        else:
+            out = text_cross_attention(q, k, v)
         return self.to_out[0](_merge_heads(out))
 
 
@@ -198,7 +203,7 @@ def _self_attn_block(x: torch.Tensor, norm: nn.LayerNorm, attn: CrossAttention
         return fused_ln_self_attention(
             x, norm.weight, norm.bias, attn.to_q.weight.t(),
             attn.to_k.weight.t(), attn.to_v.weight.t(), wo.weight.t(),
-            wo.bias, attn.num_heads, attn.head_dim, eps=LN_EPS,
+            wo.bias, attn.num_heads, attn.head_dim, eps=norm.eps,
         )
     return x + attn(layer_norm(x, norm))
 
@@ -218,32 +223,33 @@ def _ff_block(x: torch.Tensor, norm: nn.LayerNorm, ff: FeedForward) -> torch.Ten
     proj, out = ff.net[0].proj, ff.net[2]
     fn = fused_ln_geglu_ff if use_fused(x.shape[-1], x.dtype) else ln_geglu_ff_decomposed
     return fn(x, norm.weight, norm.bias, proj.weight.t(), proj.bias, out.weight.t(),
-              out.bias, eps=LN_EPS)
+              out.bias, eps=norm.eps)
 
 
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
     """LayerNorm with f32 statistics, rounded once to the input dtype: the
     JAX package's f32 ``nn.LayerNorm`` followed by its consumer's cast."""
-    return F.layer_norm(x, (x.shape[-1],), norm.weight, norm.bias, LN_EPS)
+    return F.layer_norm(x, (x.shape[-1],), norm.weight, norm.bias, norm.eps)
 
 
 class TransformerBlock2D(nn.Module):
     """SD BasicTransformerBlock: self-attn, text cross-attn, GEGLU FF."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int,
-                 context_dim: int):
+                 context_dim: int, ln_eps: float = LN_EPS):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.norm1 = nn.LayerNorm(dim, eps=ln_eps)
         self.attn1 = CrossAttention(dim, dim, num_heads, head_dim)
-        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.norm2 = nn.LayerNorm(dim, eps=ln_eps)
         self.attn2 = CrossAttention(dim, context_dim, num_heads, head_dim)
-        self.norm3 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.norm3 = nn.LayerNorm(dim, eps=ln_eps)
         self.ff = FeedForward(dim)
 
     def forward(self, x: torch.Tensor,
                 context: Optional[torch.Tensor]) -> torch.Tensor:
         """``context=None`` is the live model's all-zero text conditioning,
-        for which attn2 collapses to its exact constant."""
+        for which attn2 collapses to its exact constant; a (b, Lt, c_ctx)
+        ``context`` (MVDream's) is attended."""
         x = self_attn_block(x, self.norm1, self.attn1)
         # Under the zero text context attn2 is a constant; its input is unused.
         h = x if context is None else layer_norm(x, self.norm2)
@@ -256,25 +262,29 @@ class Transformer2D(nn.Module):
     proj_in, transformer blocks over (h*w) tokens, proj_out, residual."""
 
     def __init__(self, channels: int, num_heads: int, head_dim: int,
-                 context_dim: int, groups: int, depth: int = 1):
+                 context_dim: int, groups: int, depth: int = 1,
+                 ln_eps: float = LN_EPS):
         super().__init__()
         self.norm = GroupNorm(groups, channels, 1e-6)
         self.proj_in = nn.Linear(channels, channels)
         self.transformer_blocks = nn.ModuleList(
-            [TransformerBlock2D(channels, num_heads, head_dim, context_dim)
+            [TransformerBlock2D(channels, num_heads, head_dim, context_dim, ln_eps)
              for _ in range(depth)]
         )
         self.proj_out = nn.Linear(channels, channels)
 
-    def forward(self, x: torch.Tensor,
-                context: Optional[torch.Tensor] = None) -> torch.Tensor:
-        b, c, h, w = x.shape
-        hidden = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                num_views: int = 1) -> torch.Tensor:
+        """x: (b * num_views, c, h, w). With ``num_views`` > 1 the blocks run
+        on each row's views as one sequence of num_views * h * w tokens
+        (MVDream's joint attn1); ``context`` then holds one text a row."""
+        bv, c, h, w = x.shape
+        hidden = self.norm(x).permute(0, 2, 3, 1).reshape(bv // num_views, num_views * h * w, c)
         hidden = self.proj_in(hidden)
         for block in self.transformer_blocks:
             hidden = block(hidden, context)
         hidden = self.proj_out(hidden)
-        return hidden.reshape(b, h, w, c).permute(0, 3, 1, 2) + x
+        return hidden.reshape(bv, h, w, c).permute(0, 3, 1, 2) + x
 
 
 class AttnBlockVAE(nn.Module):

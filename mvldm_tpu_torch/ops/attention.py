@@ -22,6 +22,8 @@ Counterpart of ``mvldm_tpu/ops/attention.py``.
   JAX custom VJP): CPU tensors take the plain versions, CUDA tensors the
   kernels for their dtype: f32 the f32 route (``ops/f32_route.py``), any
   other dtype the bf16 kernels above, which raise on what they do not take.
+* :func:`text_cross_attention` — the same dispatcher on text keys, the
+  entry of the text cross-attention (no counterpart in the JAX package).
 
 Each kernel wrapper counts its launches in ``<wrapper>.launches``.
 """
@@ -347,3 +349,12 @@ def attention(
     if q.device.type == "cpu":
         return attention_reference(q, k, v, bias, scale)
     return _fwd_kernel(q)(q, k, v, bias, scale)
+
+
+@span("ops.text_cross_attention")
+def text_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Image-token queries onto a text's tokens, (B, H, Lq, D) x (B, H, Lt,
+    D): :func:`attention` without a bias, its entry of its own so that the
+    text cross-attention (MVDream's attn2, Lt = 77: on the card the flash
+    forward on a ragged key tail) is told apart from self-attention."""
+    return attention(q, k, v)

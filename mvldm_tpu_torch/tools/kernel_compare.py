@@ -21,14 +21,15 @@ replay). One JSON line per shape and launch, then the card as
   dK/dV) at every attention shape of a training step
   (:data:`TRAIN_SHAPES`), SDPA's backward beside it;
 * ``fwd``: the flash forward (``flash_attn_fwd.cu``) at every shape of
-  ``chip_smoke.py``'s attention phase (:data:`SAMPLING_SHAPES`) and the
-  forward of every training shape (with the lse), SDPA's forward and the
-  exp floor beside it;
+  ``chip_smoke.py``'s attention phase (:data:`SAMPLING_SHAPES`,
+  :data:`T2MV_FLASH_SHAPES`) and the forward of every training shape
+  (with the lse), SDPA's forward and the exp floor beside it;
 * ``gemm``: each of the five GEMM entries of ``fused_ln_attn.cu``,
   ``fused_ln_geglu_ff.cu`` and ``micro_matmul.cu`` (the GEMM tile of
   ``gemm_tile.cuh``) at the shapes of the fused blocks
-  (:data:`ATTN_BLOCK_SHAPES`, :data:`FF_BLOCK_SHAPES`) and of the matmul
-  probe (:data:`MATMUL_SHAPES`), the cuBLAS product beside it;
+  (:data:`ATTN_BLOCK_SHAPES`, :data:`FF_BLOCK_SHAPES`, MVDream's
+  :data:`T2MV_ATTN_BLOCK_SHAPES`, :data:`T2MV_FF_BLOCK_SHAPES`) and of
+  the matmul probe (:data:`MATMUL_SHAPES`), the cuBLAS product beside it;
 * ``micro``: the microbenchmark's attention probes (``micro_attn.cu``),
   the f32-dot flash and fullk in its modes, at every such case of the TPU
   tool's sections (:data:`MICRO_CASES`), SDPA (for the f32-dot flash also
@@ -119,6 +120,27 @@ ATTN_BLOCK_SHAPES = [
     ("cross-view attn2 16x16 (C=640)", 10, 256, 640, 8, 80),
 ]
 FF_BLOCK_SHAPES = [("FF 32x32 (C=320)", 10, 1024, 320), ("FF 16x16 (C=640)", 10, 256, 640)]
+
+# MVDream's text-to-multiview step (``models/mvdream.py``: 4 prompts with
+# batched CFG, 8 rows of 4 views at 32x32 latents, heads of D = 64), whose
+# SD blocks run on each row's 4 views as one sequence: (label, B, H, Lq, Lk,
+# D) of the flash forward, no bias (the text attn2 onto 77 tokens at every
+# level, a ragged key tail, and the joint attn1 of the C = 1280 blocks,
+# which take the decomposed path); the fused blocks' joint shapes as above.
+T2MV_FLASH_SHAPES = [
+    ("MVDream text attn2 32x32 (C=320)", 8, 5, 4 * 1024, 77, 64),
+    ("MVDream text attn2 16x16 (C=640)", 8, 10, 4 * 256, 77, 64),
+    ("MVDream text attn2 8x8 (C=1280)", 8, 20, 4 * 64, 77, 64),
+    ("MVDream text attn2 4x4 (C=1280)", 8, 20, 4 * 16, 77, 64),
+    ("MVDream joint attn1 8x8 (C=1280)", 8, 20, 4 * 64, 4 * 64, 64),
+    ("MVDream joint attn1 4x4 (C=1280)", 8, 20, 4 * 16, 4 * 16, 64),
+]
+T2MV_ATTN_BLOCK_SHAPES = [
+    ("MVDream joint attn1 32x32 (C=320)", 8, 4 * 1024, 320, 5, 64),
+    ("MVDream joint attn1 16x16 (C=640)", 8, 4 * 256, 640, 10, 64),
+]
+T2MV_FF_BLOCK_SHAPES = [("MVDream FF 32x32 (C=320)", 8, 4 * 1024, 320),
+                        ("MVDream FF 16x16 (C=640)", 8, 4 * 256, 640)]
 MATMUL_SHAPES = [(4096, 1024), (8192, 512)]
 
 # (label, probe, case kwargs): every f32-dot flash and fullk case of the TPU
@@ -163,16 +185,18 @@ OPTIONAL_ENTRIES = {"f32_route": ("mvldm_f32_gemm_batched", "mvldm_f32_attn_rows
 BUILD_LOGS: Dict[str, Dict[str, str]] = {"this": {}, "other": {}}
 
 
-def attn_inputs(gen, b, h, l, d, with_bias):
-    """Seeded bf16 q, k, v on the card; with a bias, the unconditional rows
-    (all but the first) mask their context view (the first fifth of the
-    keys) out, as batched CFG does."""
-    q, k, v = (torch.randn((b, h, l, d), generator=gen, device="cuda",
-                           dtype=torch.bfloat16) for _ in range(3))
+def attn_inputs(gen, b, h, l, d, with_bias, lk=None):
+    """Seeded bf16 q (L rows) and k, v (``lk`` rows, L when None) on the
+    card; with a bias, the unconditional rows (all but the first) mask
+    their context view (the first fifth of the keys) out, as batched CFG
+    does."""
+    lk = l if lk is None else lk
+    q, k, v = (torch.randn((b, h, n, d), generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for n in (l, lk, lk))
     bias = None
     if with_bias:
-        bias = torch.zeros((b, l), device="cuda")
-        bias[1:, : l // 5] = attn.NEG_INF
+        bias = torch.zeros((b, lk), device="cuda")
+        bias[1:, : lk // 5] = attn.NEG_INF
     return q, k, v, bias
 
 
@@ -495,14 +519,21 @@ def fwd_shapes():
             + [(f"train {label}", *shape, True) for label, *shape in TRAIN_SHAPES])
 
 
+def fwd_cases():
+    """(label, B, H, Lq, Lk, D, bias, with_lse): :func:`fwd_shapes`, then
+    MVDream's (:data:`T2MV_FLASH_SHAPES`, no lse)."""
+    return ([(label, b, h, l, l, d, bias, lse) for label, b, h, l, d, bias, lse in fwd_shapes()]
+            + [(*shape, False, False) for shape in T2MV_FLASH_SHAPES])
+
+
 def compare_fwd(libs, args, card: str) -> None:
     libs = {name: ls["flash_attn_fwd"] for name, ls in libs.items()}
     n_sms = measure.sm_count()
     gen = torch.Generator("cuda").manual_seed(0)
-    for label, b, h, l, d, with_bias, with_lse in fwd_shapes():
+    for label, b, h, l, lk, d, with_bias, with_lse in fwd_cases():
         if args.only and not any(text in label for text in args.only):
             continue
-        q, k, v, bias = attn_inputs(gen, b, h, l, d, with_bias)
+        q, k, v, bias = attn_inputs(gen, b, h, l, d, with_bias, lk)
         scale = attn._scale(q, None)
         out = torch.empty_like(q)
         lse = torch.empty(q.shape[:3], dtype=torch.float32, device="cuda") if with_lse else None
@@ -522,9 +553,10 @@ def compare_fwd(libs, args, card: str) -> None:
         sdpa_ms = measure.time_ms(
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), iters)
         mhz = measure.sm_clock_mhz()
-        rec = dict(kernel="fwd", shape=label, B=b, H=h, L=l, D=d, bias=with_bias, lse=with_lse,
-                   sm_mhz=mhz, exp_floor_ms=measure.exp_floor_ms(b * h * l * l, mhz, n_sms),
-                   bound_ms=measure.bound(4.0 * b * h * l * l * d,
+        rec = dict(kernel="fwd", shape=label, B=b, H=h, L=l, Lk=lk, D=d, bias=with_bias,
+                   lse=with_lse, sm_mhz=mhz,
+                   exp_floor_ms=measure.exp_floor_ms(b * h * l * lk, mhz, n_sms),
+                   bound_ms=measure.bound(4.0 * b * h * l * lk * d,
                                           measure.nbytes(q, k, v, bias, out, lse))[0],
                    sdpa_ms=sdpa_ms, card=card)
         for name, ts in times.items():
@@ -668,11 +700,12 @@ def ff_block_inputs(gen, n, l, c):
 
 
 def gemm_calls(gen):
-    """Every GEMM launch at every shape of the fused blocks and the probe."""
-    for label, n, l, c, heads, d in ATTN_BLOCK_SHAPES:
+    """Every GEMM launch at every shape of the fused blocks (MVDream's
+    included) and the probe."""
+    for label, n, l, c, heads, d in ATTN_BLOCK_SHAPES + T2MV_ATTN_BLOCK_SHAPES:
         yield from attn_block_gemms(label, *attn_block_inputs(gen, n, l, c, heads, d), heads, d,
                                     gen)
-    for label, n, l, c in FF_BLOCK_SHAPES:
+    for label, n, l, c in FF_BLOCK_SHAPES + T2MV_FF_BLOCK_SHAPES:
         yield from ff_block_gemms(label, *ff_block_inputs(gen, n, l, c), gen)
     for m, k in MATMUL_SHAPES:
         yield matmul_gemm(m, k, gen)

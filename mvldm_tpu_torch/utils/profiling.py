@@ -28,6 +28,8 @@ range only):
 * ``engine.encode``, ``engine.ray_encode``, ``engine.sample_latents``,
   ``engine.decode``, ``engine.denoise_step``, ``engine.training_loss``:
   the ``DiffusionEngine`` method of that name;
+* ``engine.t2mv`` (prompts, views, steps): one ``text_to_multiview``
+  call (MVDream), its decode included;
 * ``engine.unet`` (branch cond / uncond / batched / train): one UNet call;
 * ``train.forward_backward``, ``train.grad_norm``, ``train.optimizer``,
   ``train.load_params``, ``train.ema``: the parts of a training step;
@@ -37,7 +39,8 @@ range only):
   the ``Trainer``'s loop around its steps;
 * ``ops.attention``, ``ops.flash_attention_bwd_dq``,
   ``ops.flash_attention_bwd_dkv``, ``ops.fused_ln_self_attention``,
-  ``ops.fused_ln_geglu_ff``: the ``ops`` entry points the models call.
+  ``ops.fused_ln_geglu_ff``, ``ops.text_cross_attention`` (MVDream's
+  attn2 core): the ``ops`` entry points the models call.
 
 Sync sites (``sync.<site>``): ``upload`` (a sampler's host arrays),
 ``batch_upload`` (a training batch's host tensors), ``schedule_upload``
@@ -45,7 +48,9 @@ Sync sites (``sync.<site>``): ``upload`` (a sampler's host arrays),
 (the list index by which ``absolute_to_relative_camera`` picks its
 reference view), ``relative_pose`` (that function's inverse),
 ``world_rays`` (``get_world_rays``' inverse), ``gather`` (a launch output
-to the host), ``grad_norm`` (the gradient norm read on the host).
+to the host), ``grad_norm`` (the gradient norm read on the host),
+``t2mv_upload`` (a ``text_to_multiview`` call's inputs, one copy each),
+``t2mv_gather`` (its uint8 frames to the host).
 """
 
 from __future__ import annotations

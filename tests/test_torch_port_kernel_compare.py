@@ -88,6 +88,25 @@ def test_gemm_shapes_are_the_fused_blocks_and_the_probe():
                                                     "micro_matmul"}
 
 
+def test_t2mv_shapes_are_mvdreams_step():
+    """MVDream's shapes (4 prompts with batched CFG: 8 rows of 4 views at
+    32x32 latents, heads of 64): the text attention onto 77 keys at each of
+    the four levels and the C = 1280 joint attentions on the flash forward,
+    the C = 320 and 640 joint sequences on the fused blocks (within their
+    gate); the forward comparison runs the flash shapes after the others."""
+    flash = kernel_compare.T2MV_FLASH_SHAPES
+    assert sorted(lq for _, _, _, lq, lk, _ in flash if lk == 77) == [64, 256, 1024, 4096]
+    assert sorted(lq for _, _, _, lq, lk, _ in flash if lk == lq) == [64, 256]
+    assert {(b, d) for _, b, _, _, _, d in flash} == {(8, 64)}
+    assert [(l, c, h * d) for _, n, l, c, h, d in kernel_compare.T2MV_ATTN_BLOCK_SHAPES] == [
+        (4096, 320, 320), (1024, 640, 640)]
+    for _, n, l, c in kernel_compare.T2MV_FF_BLOCK_SHAPES:
+        assert n == 8 and c <= fused_attn.MAX_KERNEL_CHANNELS
+    cases = kernel_compare.fwd_cases()
+    assert len({c[0] for c in cases}) == len(cases)
+    assert [c[:6] for c in cases if c[0].startswith("MVDream")] == flash
+
+
 @pytest.mark.parametrize("c,ok", [(8, True), (320, True), (640, True), (644, False),
                                   (648, False), (1280, False)])
 def test_kernel_channel_gate(c, ok):

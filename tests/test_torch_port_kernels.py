@@ -95,6 +95,7 @@ def _randn(gen, *shape, scale=1.0, device):
     (1, 2, 64, 190, 160, False),
     (1, 2, 90, 150, 128, True),
     (1, 1, 130, 130, 512, False),
+    (1, 5, 4096, 77, 64, False),
 ])
 def test_flash_attention(cuda, b, h, lq, lk, d, with_bias):
     gen = torch.Generator().manual_seed(d + lq)

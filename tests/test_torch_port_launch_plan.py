@@ -88,6 +88,24 @@ def test_chip_smoke_launch_counts_are_the_plans(counters, run):
     assert plan == want
 
 
+def t2mv_count(counters, steps: int) -> dict:
+    engine = chip_smoke.build_mvdream("meta", steps=steps)
+    assert engine.dtype == torch.bfloat16
+    for name in NAMES:
+        counters[name] = 0
+    engine.text_to_multiview(*chip_smoke.t2mv_inputs(chip_smoke.T2MV_PROMPTS, "meta"))
+    return dict(counters)
+
+
+def test_chip_smoke_t2mv_launch_counts_are_the_plan(counters):
+    """MVDream's text-to-multiview dispatch in the t2mv phase (4 prompts x
+    4 views, the configuration's 50 steps)."""
+    steps = chip_smoke.build_mvdream("meta").scheduler.num_inference_steps
+    one, two = t2mv_count(counters, 1), t2mv_count(counters, 2)
+    plan = {k: one[k] + (steps - 1) * (two[k] - one[k]) for k in NAMES}
+    assert steps == 50 and plan == chip_smoke.T2MV_LAUNCHES
+
+
 TRAIN_NAMES = NAMES + ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
 
