@@ -29,7 +29,17 @@ Phases, each fatal on failure (non-zero exit, no final result line):
    path's time on the same inputs (``decomposed_ms``; no single PyTorch
    call computes the fused function) and each of its GEMM launches on its
    own: own error, device time, bound and the cuBLAS product of the same
-   operands.
+   operands. The GroupNorm kernel (csrc/group_norm_nhwc.cu) at every
+   GroupNorm shape of the UNets (10 views and the 80-view fills) and of the
+   VAE (one frame and a 48-frame decode), with the SiLU and the
+   time-embedding add where the models take them: the sampling path's
+   launch (under inference mode) against the plain version, and the mean
+   and rstd the training path's launch saves within 1e-4 of the plain
+   version's; timed at the L0 shape of a 16-group fill (80 views x 320 x
+   32 x 32) beside the stock chain it replaces (the add, aten's GroupNorm
+   and the SiLU on the NCHW tensor, and on the channels-last one, which
+   aten copies first) and its byte bound; its cluster route timed beside
+   its two-pass route at four shapes.
 3. the microbenchmark path (mvldm_tpu_torch.tools.bench_attn_micro):
    every section (matmul exp flash fullk floor) at the tool's shapes, as
    ``python -m mvldm_tpu_torch.tools.bench_attn_micro`` runs them, with
@@ -188,6 +198,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from mvldm_tpu_torch.tools.bench_attn_micro import plain_by_rows
 from mvldm_tpu_torch.tools.measure import (
@@ -213,9 +224,11 @@ F32_KERNEL_REL_L2 = 1e-5
 F32_REL_L2_BOUND = 1e-3
 # Forward-kernel launches of one 16-frame scene (one anchor launch, two fill
 # launches), as the bf16 sampling path has taken them since the fused blocks
-# and the forward were ported.
+# and the forward were ported; the GroupNorm kernel's (the channels-last UNet
+# and VAE): 61 a UNet call, 22 a VAE encode, 30 a decode, over 100 UNet calls,
+# 3 encodes and 3 decodes.
 SCENE_LAUNCHES = {"flash_attention": 1706, "fused_ln_self_attention": 800,
-                  "fused_ln_geglu_ff": 800}
+                  "fused_ln_geglu_ff": 800, "group_norm_nhwc": 6256}
 # Forward-kernel launches of each run of the cli phase, as the sampling CLI's
 # launch plan takes them (tests/test_torch_port_launch_plan.py counts them
 # again on the meta device): (a) anchored, 2 scenes x 8 frames in one
@@ -224,14 +237,15 @@ SCENE_LAUNCHES = {"flash_attention": 1706, "fused_ln_self_attention": 800,
 # the standard cross-view block, 4 frames.
 CLI_LAUNCHES = {
     "anchored": {"flash_attention": 1706, "fused_ln_self_attention": 800,
-                 "fused_ln_geglu_ff": 800},
+                 "fused_ln_geglu_ff": 800, "group_norm_nhwc": 6256},
     "autoregressive": {"flash_attention": 854, "fused_ln_self_attention": 400,
-                       "fused_ln_geglu_ff": 400},
+                       "fused_ln_geglu_ff": 400, "group_norm_nhwc": 3154},
     "autoregressive_feedthrough": {"flash_attention": 853, "fused_ln_self_attention": 400,
-                                   "fused_ln_geglu_ff": 400},
-    "ddpm": {"flash_attention": 344, "fused_ln_self_attention": 160, "fused_ln_geglu_ff": 160},
+                                   "fused_ln_geglu_ff": 400, "group_norm_nhwc": 3132},
+    "ddpm": {"flash_attention": 344, "fused_ln_self_attention": 160, "fused_ln_geglu_ff": 160,
+             "group_norm_nhwc": 1324},
     "standard": {"flash_attention": 604, "fused_ln_self_attention": 200,
-                 "fused_ln_geglu_ff": 200},
+                 "fused_ln_geglu_ff": 200, "group_norm_nhwc": 2704},
 }
 CLI_FRAMES = 24  # frames a synthetic scene of the cli phase holds
 # MVDream's text-to-multiview dispatch (the t2mv phase): the configuration
@@ -239,25 +253,29 @@ CLI_FRAMES = 24  # frames a synthetic scene of the cli phase holds
 # 4 views, 50 steps (tests/test_torch_port_launch_plan.py counts them again
 # on the meta device): a step runs 16 text attentions, 6 joint attentions
 # at C = 1280 on the flash forward and 10 fused blocks of each kind; the
-# decode adds the VAE's mid-block attention.
+# decode adds the VAE's mid-block attention. The UNet's 61 GroupNorms a step
+# and the decode's 30 take the GroupNorm kernel.
 MVDREAM_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark",
                               "configs", "mvdream-sd21-4view.json")
 T2MV_PROMPTS, T2MV_VIEWS = 4, 4
 T2MV_LAUNCHES = {"flash_attention": 1101, "fused_ln_self_attention": 500,
-                 "fused_ln_geglu_ff": 500}
+                 "fused_ln_geglu_ff": 500, "group_norm_nhwc": 3080}
 # Kernel launches of each run of the cli_train phase, as the training CLI's
 # launch plan takes them (tests/test_torch_port_launch_plan.py counts them
 # again on the meta device): a training step at batch 6 launches 26 / 8 / 8
-# forward and 25 / 25 backward kernels (43 / 16 / 16 forward under remat);
-# a validation scene (1 + 3 views, 70 DDIM steps) 1192 / 560 / 560.
-_TRAIN_STEP = (26, 8, 8, 25, 25)
-_TRAIN_STEP_REMAT = (43, 16, 16, 25, 25)
+# forward and 25 / 25 backward kernels (43 / 16 / 16 forward under remat)
+# and 83 GroupNorm kernels (the UNet's 61, the VAE encode's 22; 143 under
+# remat, which runs the 60 inside the rematerialised blocks again; the
+# GroupNorm backward is plain PyTorch); a validation scene (1 + 3 views, 70
+# DDIM steps) 1192 / 560 / 560 and 4322.
+_TRAIN_STEP = (26, 8, 8, 25, 25, 83)
+_TRAIN_STEP_REMAT = (43, 16, 16, 25, 25, 143)
 # From the latent cache a step runs no VAE encode: its D = 512 flash launch
-# drops out (remat under tpu_fast).
-_TRAIN_STEP_REMAT_CACHED = (42, 16, 16, 25, 25)
-_VAL_SCENE = (1192, 560, 560, 0, 0)
+# and its 22 GroupNorms drop out (remat under tpu_fast).
+_TRAIN_STEP_REMAT_CACHED = (42, 16, 16, 25, 25, 121)
+_VAL_SCENE = (1192, 560, 560, 0, 0, 4322)
 TRAIN_KERNELS = ("flash_attention", "fused_ln_self_attention", "fused_ln_geglu_ff",
-                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "group_norm_nhwc")
 # The optimizer's fused kernels (ops/fused_adamw.py), as the launch counts
 # name them: at accumulation 2, one accumulate launch a step and one update
 # launch every second, on AdamW with f32 moments; bf16 moments (tpu_fast)
@@ -348,8 +366,6 @@ def _counts(kernels) -> dict:
 # --------------------------------------------------------------- kernels
 
 def attention_phase(card: str, gen) -> dict:
-    import torch.nn.functional as F
-
     from mvldm_tpu_torch.ops.attention import attention_reference, flash_attention
     from mvldm_tpu_torch.tools.kernel_compare import (
         SAMPLING_SHAPES,
@@ -450,6 +466,117 @@ def fused_attn_phase(card: str, gen) -> dict:
         emit(**rec)
         headline = headline or rec
     return dict(headline, max_abs_err=max_err)
+
+
+# (hw, channels, silu, add) of every GroupNorm of the st3d UNet at 256 px
+# (the MVDream and standard UNets take the same shapes), then of the VAE.
+GROUP_NORM_SHAPES = (
+    [(1024, c, True, True) for c in (320, 640, 960)] + [(1024, 320, False, False)]
+    + [(256, c, True, True) for c in (320, 640, 960, 1280, 1920)] + [(256, 640, False, False)]
+    + [(64, c, True, True) for c in (640, 1280, 1920, 2560)] + [(64, 1280, False, False)]
+    + [(16, c, True, True) for c in (1280, 2560)] + [(16, 1280, False, False)])
+VAE_GROUP_NORM_SHAPES = [(65536, 128), (65536, 256), (16384, 256), (16384, 512),
+                         (4096, 512), (1024, 512)]
+# (views, pixels, channels) of the launches the video cells' 80-view fills
+# and 48-frame decodes give the kernel, beside the 10-view launches of
+# GROUP_NORM_SHAPES; the first is L0, a 16-group fill's first level, which
+# the phase also times.
+GROUP_NORM_FILLS = [(80, 1024, 320), (80, 1024, 640), (80, 1024, 960), (80, 256, 1280),
+                    (80, 64, 2560)]
+VAE_GROUP_NORM_DECODES = [(48, 4096, 512), (48, 1024, 512)]
+GROUP_NORM_L0 = GROUP_NORM_FILLS[0]
+# (views, pixels, channels) at which the cluster route is timed beside the
+# two-pass route, which takes any shape: L0 and a 16 x 16 fill, and both at
+# 10 views.
+GROUP_NORM_ROUTES = [GROUP_NORM_L0, (80, 256, 1280), (10, 1024, 320), (10, 256, 1280)]
+
+
+def group_norm_phase(card: str, gen) -> dict:
+    """Every GroupNorm shape of the UNets (at 10 views and at the 80-view
+    fills) and of the VAE (a frame, and a 48-frame decode) against the plain
+    version: the output of the entry the sampling path calls (under
+    inference mode: no mean and rstd), and the mean and rstd of the
+    launch the training path makes, whose output must be the same bits.
+    Then the L0 shape timed beside the stock chain, and the cluster route
+    beside the two-pass route at GROUP_NORM_ROUTES."""
+    from mvldm_tpu_torch.ops.group_norm import (
+        _group_norm_cuda,
+        group_norm_nhwc,
+        group_norm_nhwc_reference,
+        plan,
+        two_pass_plan,
+    )
+
+    def inputs(n, hw, c):
+        side = int(round(hw ** 0.5))
+        x = (torch.randn((n, side, side, c), generator=gen, device="cuda") * 1.5 + 0.3)
+        w = torch.randn(c, generator=gen, device="cuda") * 0.5 + 1
+        b = torch.randn(c, generator=gen, device="cuda") * 0.5
+        a = torch.randn((n, c), generator=gen, device="cuda")
+        return [t.to(torch.bfloat16) for t in (x.permute(0, 3, 1, 2), w, b, a)]
+
+    max_err = 0.0
+    cases = ([(10, hw, c, silu, add) for hw, c, silu, add in GROUP_NORM_SHAPES]
+             + [(n, hw, c, True, True) for n, hw, c in GROUP_NORM_FILLS]
+             + [(1, hw, c, True, False) for hw, c in VAE_GROUP_NORM_SHAPES]
+             + [(n, hw, c, True, False) for n, hw, c in VAE_GROUP_NORM_DECODES])
+    for n, hw, c, silu, with_add in cases:
+        x, w, b, a = inputs(n, hw, c)
+        a = a if with_add else None
+        with torch.inference_mode():
+            out = group_norm_nhwc(x, w, b, 32, 1e-5, silu, a)
+        y, mean, rstd = _group_norm_cuda(x, w, b, 32, 1e-5, silu, a)
+        ref, ref_mean, ref_rstd = group_norm_nhwc_reference(
+            x.float(), w.float(), b.float(), 32, 1e-5, silu, None if a is None else a.float())
+        label = f"{n} x {c} x {hw}{' silu' if silu else ''}{' add' if with_add else ''}"
+        acc = check(out, ref, f"group_norm_nhwc {label}")
+        if not torch.equal(y, out):
+            fail(f"group_norm_nhwc {label}: the launch with mean and rstd gives other bits")
+        stats_err = max((mean - ref_mean).abs().max().item(),
+                        ((rstd - ref_rstd).abs() / ref_rstd).max().item())
+        if stats_err > 1e-4:
+            fail(f"group_norm_nhwc {label}: mean / rstd off the plain version's by {stats_err}")
+        max_err = max(max_err, acc["max_abs_err"])
+        emit(phase="kernel", kernel="group_norm_nhwc", shape=label,
+             plan=plan(hw, c, 32)._asdict(), stats_err=stats_err, **acc, card=card)
+        del x, w, b, a, out, y, ref
+
+    n, hw, c = GROUP_NORM_L0
+    x, w, b, a = inputs(n, hw, c)
+    xn = x.contiguous()
+    args = (x, w, b, 32, 1e-5, True, a)
+    with torch.inference_mode():
+        ms = time_ms(lambda: group_norm_nhwc(*args))
+    stock_ms = time_ms(lambda: F.silu(F.group_norm(xn + a[:, :, None, None], 32, w, b, 1e-5)))
+    stock_cl_ms = time_ms(lambda: F.silu(F.group_norm(x + a[:, :, None, None], 32, w, b, 1e-5)))
+    plain_ms = time_ms(lambda: group_norm_nhwc_reference(*args), 3)
+    bound_ms, bound_by = bound(15.0 * x.numel(), 2 * nbytes(x))
+    rec = dict(phase="kernel", kernel="group_norm_nhwc", shape=f"L0 {n} x {c} x {hw} silu add",
+               ms=ms, plain_ms=plain_ms, library_ms=stock_ms, stock_channels_last_ms=stock_cl_ms,
+               bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms,
+               what="library_ms: the stock chain on the NCHW tensor (add, aten GroupNorm, "
+                    "SiLU); stock_channels_last_ms: the same on the channels-last tensor",
+               card=card)
+    emit(**rec)
+
+    for n, hw, c in GROUP_NORM_ROUTES:
+        x, w, b, a = inputs(n, hw, c)
+        args = (x, w, b, 32, 1e-5, True, a)
+        tp = two_pass_plan(hw, c)
+        with torch.inference_mode():
+            out = _group_norm_cuda(*args, stats=False, pl=tp)[0]
+            ms = time_ms(lambda: group_norm_nhwc(*args))
+            two_pass_ms = time_ms(lambda: _group_norm_cuda(*args, stats=False, pl=tp))
+        label = f"{n} x {c} x {hw} silu add"
+        ref = group_norm_nhwc_reference(x.float(), w.float(), b.float(), 32, 1e-5, True,
+                                        a.float())[0]
+        acc = check(out, ref, f"group_norm_nhwc two-pass {label}")
+        emit(phase="kernel", kernel="group_norm_nhwc", shape=f"routes {label}",
+             plan=plan(hw, c, 32)._asdict(), ms=ms, two_pass_ms=two_pass_ms,
+             two_pass_plan=tp._asdict(), two_pass_max_abs_err=acc["max_abs_err"],
+             bound_ms=bound(15.0 * x.numel(), 2 * nbytes(x))[0], card=card)
+        del x, w, b, a, out, ref
+    return dict(rec, max_abs_err=max_err)
 
 
 def fused_ff_phase(card: str, gen) -> dict:
@@ -2564,8 +2691,9 @@ def _counted_kernels():
     from mvldm_tpu_torch.ops.f32_route import KERNELS as F32_KERNELS
     from mvldm_tpu_torch.ops.fused_attn import fused_ln_self_attention
     from mvldm_tpu_torch.ops.fused_ff import fused_ln_geglu_ff
+    from mvldm_tpu_torch.ops.group_norm import group_norm_nhwc
 
-    return (flash_attention, fused_ln_self_attention, fused_ln_geglu_ff,
+    return (flash_attention, fused_ln_self_attention, fused_ln_geglu_ff, group_norm_nhwc,
             flash_attention_bwd_dq, flash_attention_bwd_dkv), tuple(F32_KERNELS)
 
 
@@ -2865,6 +2993,7 @@ def main() -> int:
     from mvldm_tpu_torch.ops.f32_route import KERNELS as F32_KERNELS
     from mvldm_tpu_torch.ops.fused_attn import fused_ln_self_attention
     from mvldm_tpu_torch.ops.fused_ff import fused_ln_geglu_ff
+    from mvldm_tpu_torch.ops.group_norm import group_norm_nhwc
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2881,10 +3010,11 @@ def main() -> int:
         "flash_attention": attention_phase(card, gen),
         "fused_ln_self_attention": fused_attn_phase(card, gen),
         "fused_ln_geglu_ff": fused_ff_phase(card, gen),
+        "group_norm_nhwc": group_norm_phase(card, gen),
         **flash_bwd_phase(card, gen),
     }
     micro_records, micro_launches = micro_phase(card)
-    forward = (flash_attention, fused_ln_self_attention, fused_ln_geglu_ff)
+    forward = (flash_attention, fused_ln_self_attention, fused_ln_geglu_ff, group_norm_nhwc)
     backward = (flash_attention_bwd_dq, flash_attention_bwd_dkv)
     engine, sampling_launches = main_path_phase(card, forward, F32_KERNELS)
     profile_phase(card, engine)
@@ -2943,6 +3073,9 @@ def main() -> int:
                                     "mvldm_tpu/ops/fused_attn.py:65"),
         "fused_ln_geglu_ff": ("mvldm_tpu_torch/csrc/fused_ln_geglu_ff.cu",
                               "mvldm_tpu/ops/fused_ff.py:75"),
+        "group_norm_nhwc": ("mvldm_tpu_torch/csrc/group_norm_nhwc.cu",
+                            "none: XLA's GroupNorm of mvldm_tpu/models/layers.py (library_ms: "
+                            "the stock add, GroupNorm and SiLU on NCHW)"),
     }
     def bf16_paths(name: str) -> dict:
         return {"sampling": sampling_launches.get(name, 0), "training": train_launches[name],

@@ -3,11 +3,14 @@
 
 Modules carry the reference (diffusers) parameter names and torch layouts,
 so a reference state dict loads with ``load_state_dict`` as it is. Feature
-maps are NCHW inside the modules; normalisation statistics are f32 whatever
-the parameter dtype, and results are cast back, as in the JAX package.
-GroupNorm and the convolutions stay stock PyTorch (the JAX package leaves
-them to XLA); the attention and feed-forward sub-blocks go through
-``ops/``.
+maps are (N, C, H, W) tensors; the UNet and the VAE keep them channels-last
+in memory (NHWC, the layout of their (b, v, h, w, c) inputs), which every
+module here preserves: cuDNN's convolutions on the card run NHWC, and
+GroupNorm takes a channels-last bf16 input through the kernel of
+``ops/group_norm.py``. Normalisation statistics are f32 whatever the
+parameter dtype, and results are cast back, as in the JAX package. The
+convolutions stay stock PyTorch (the JAX package leaves them to XLA); the
+attention and feed-forward sub-blocks go through ``ops/``.
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ import torch.nn.functional as F
 from ..ops.attention import attention, text_cross_attention
 from ..ops.fused_attn import fused_ln_self_attention, use_fused
 from ..ops.fused_ff import fused_ln_geglu_ff, ln_geglu_ff_decomposed
+from ..ops.group_norm import group_norm_nhwc
 from ..parallel.tp import get_model_mesh, view_parallel
+from ..utils.profiling import span
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default: MV-LDM's transformer norms
 
@@ -48,11 +53,23 @@ def timestep_embedding(
     return torch.cat([sin, cos], dim=-1)
 
 
+_KERNEL, _STOCK = {"route": "kernel"}, {"route": "stock"}
+
+
 class GroupNorm(nn.Module):
-    """GroupNorm over NCHW with an optional SiLU. PyTorch accumulates the
-    statistics in f32 for bf16 inputs; the SiLU then runs on the normalised
-    value rounded to the input dtype (the JAX package applies it before that
-    rounding, a difference of one rounding step)."""
+    """GroupNorm with an optional SiLU and an optional (N, C) ``add`` (the
+    ResNet block's time embedding) added to the input first:
+    act(GroupNorm(x + add[:, :, None, None])).
+
+    A bf16 input off the CPU takes the kernel of ``ops/group_norm.py``
+    (route "kernel" on the ``ops.group_norm`` span), which raises on an
+    input it cannot take (NCHW, or channels it does not handle) rather than
+    fall back: the add, the f32 statistics, the affine map and the SiLU in
+    one pass, rounded once, as the JAX package applies its SiLU (the add is
+    not rounded before the statistics, where the JAX package rounds it
+    once). The CPU and f32 take the stock chain (route "stock"): the add in
+    the input dtype, then ``F.group_norm``, which accumulates in f32 and
+    rounds, then ``F.silu``."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float,
                  act: Optional[str] = None):
@@ -61,14 +78,22 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.group_norm(x, self.num_groups, self.weight, self.bias, self.eps)
-        return F.silu(out) if self.act == "silu" else out
+    def forward(self, x: torch.Tensor, add: Optional[torch.Tensor] = None) -> torch.Tensor:
+        silu = self.act == "silu"
+        if x.dtype == torch.bfloat16 and x.device.type != "cpu":
+            with span("ops.group_norm", _KERNEL):
+                return group_norm_nhwc(x, self.weight, self.bias, self.num_groups, self.eps,
+                                       silu, add)
+        with span("ops.group_norm", _STOCK):
+            if add is not None:
+                x = x + add[:, :, None, None]
+            out = F.group_norm(x, self.num_groups, self.weight, self.bias, self.eps)
+            return F.silu(out) if silu else out
 
 
 class ResnetBlock(nn.Module):
-    """GroupNorm -> SiLU -> Conv3x3 (x2) with residual; optional time
-    embedding added after the first conv."""
+    """GroupNorm -> SiLU -> Conv3x3 (x2) with residual; an optional time
+    embedding is added after the first conv, as norm2's ``add``."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  temb_channels: Optional[int], groups: int, eps: float):
@@ -85,9 +110,8 @@ class ResnetBlock(nn.Module):
     def forward(self, x: torch.Tensor,
                 temb: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = self.conv1(self.norm1(x))
-        if hasattr(self, "time_emb_proj"):
-            h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(self.norm2(h))
+        add = self.time_emb_proj(F.silu(temb)) if hasattr(self, "time_emb_proj") else None
+        h = self.conv2(self.norm2(h, add))
         if hasattr(self, "conv_shortcut"):
             x = self.conv_shortcut(x)
         return x + h
@@ -277,7 +301,9 @@ class Transformer2D(nn.Module):
                 num_views: int = 1) -> torch.Tensor:
         """x: (b * num_views, c, h, w). With ``num_views`` > 1 the blocks run
         on each row's views as one sequence of num_views * h * w tokens
-        (MVDream's joint attn1); ``context`` then holds one text a row."""
+        (MVDream's joint attn1); ``context`` then holds one text a row. On a
+        channels-last x the tokens are a view of the norm's output, and the
+        output is channels-last."""
         bv, c, h, w = x.shape
         hidden = self.norm(x).permute(0, 2, 3, 1).reshape(bv // num_views, num_views * h * w, c)
         hidden = self.proj_in(hidden)

@@ -21,9 +21,13 @@ As in the JAX package:
   keeps the 2-D products (``aten.mm`` / ``aten.addmm``) and recomputes
   the rest, the counterpart of ``dots_with_no_batch_dims_saveable``.
 
-The public forward keeps the JAX layout: (b, v, h, w, c) in and out. The
-SD2.1 backbone, :func:`sd_unet` and :class:`SDUNet`'s forward, is shared
-with MVDream's UNet (``models/mvdream.py``).
+The public forward keeps the JAX layout: (b, v, h, w, c) in and out. Inside,
+the feature maps are (b * v, c, h, w) tensors laid out channels-last (NHWC)
+from the input to the output, so the layout changes are views: cuDNN runs
+its NHWC convolutions with no transposes, and GroupNorm takes its kernel
+(``ops/group_norm.py``). The SD2.1 backbone, :func:`sd_unet` and
+:class:`SDUNet`'s forward, is shared with MVDream's UNet
+(``models/mvdream.py``).
 """
 
 from __future__ import annotations
@@ -213,7 +217,9 @@ class SDUNet(nn.Module):
 
     def _backbone(self, latents: torch.Tensor, temb: torch.Tensor, attn_args: tuple,
                   view_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """(b, v, h, w, c_in) latents -> (b, v, h, w, c_out)."""
+        """(b, v, h, w, c_in) latents -> (b, v, h, w, c_out). The feature
+        maps stay channels-last: the input's permute is one, every module
+        keeps it, and the output's permute is a view."""
         u = self.unet
         b, v, h0, w0, _ = latents.shape
         hidden = latents.reshape(b * v, h0, w0, -1).permute(0, 3, 1, 2)

@@ -28,7 +28,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "mvldm_tpu_torch"
 SOURCES = ("flash_attn_fwd", "flash_attn_bwd", "fused_ln_attn", "fused_ln_geglu_ff",
-           "micro_matmul", "micro_attn", "micro_exp", "f32_route", "fused_adamw")
+           "micro_matmul", "micro_attn", "micro_exp", "f32_route", "fused_adamw",
+           "group_norm_nhwc")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -197,6 +198,10 @@ def ptr(t) -> ctypes.c_void_p:
 
 
 def stream_ptr(device) -> ctypes.c_void_p:
+    """The current CUDA stream of ``device``, read without building a
+    ``torch.cuda.Stream`` (a few microseconds of host time a launch)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    index = torch.device(device).index
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index))

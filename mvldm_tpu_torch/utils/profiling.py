@@ -40,7 +40,10 @@ range only):
 * ``ops.attention``, ``ops.flash_attention_bwd_dq``,
   ``ops.flash_attention_bwd_dkv``, ``ops.fused_ln_self_attention``,
   ``ops.fused_ln_geglu_ff``, ``ops.text_cross_attention`` (MVDream's
-  attn2 core): the ``ops`` entry points the models call.
+  attn2 core): the ``ops`` entry points the models call;
+* ``ops.group_norm`` (route kernel / stock): one ``models/layers.GroupNorm``
+  call, on the channels-last kernel of ``ops/group_norm.py`` or on the stock
+  ``F.group_norm`` chain.
 
 Sync sites (``sync.<site>``): ``upload`` (a sampler's host arrays),
 ``batch_upload`` (a training batch's host tensors), ``schedule_upload``

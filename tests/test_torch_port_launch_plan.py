@@ -6,7 +6,14 @@ work. A sampling count is affine in the step count, so it is counted at 1
 and 2 steps and taken to the run's steps. A training run is its steps'
 loss and backward at the config's batch plus its validation scenes, each a
 1 + 3-view ``engine.sample`` at the config's 70 steps, plus its optimizer's
-fused-kernel launches over its steps."""
+fused-kernel launches over its steps.
+
+The meta device has no cuDNN: its convolutions return NCHW whatever their
+input. The card's cuDNN returns channels-last for a channels-last input,
+and the GroupNorm kernel's count depends on that layout, so the fixtures
+give the convolutions the card's rule (``tests/test_torch_port_group_norm``
+checks on the CPU that every convolution and GroupNorm of the UNets sees
+channels-last input)."""
 
 import numpy as np
 import pytest
@@ -18,12 +25,35 @@ from mvldm_tpu_torch import builder, config
 from mvldm_tpu_torch.diffusion.video_sampling import SceneViews, VideoSampler
 from mvldm_tpu_torch.models import layers
 from mvldm_tpu_torch.ops import attention as attn
-from mvldm_tpu_torch.ops import fused_adamw, fused_attn, fused_ff
+from mvldm_tpu_torch.ops import fused_adamw, fused_attn, fused_ff, group_norm
 from mvldm_tpu_torch.scripts.main import base_lr
 from mvldm_tpu_torch.training import build_lr_schedule, build_optimizer
 from mvldm_tpu_torch.training.trainer import batch_from_arrays
 
-NAMES = ("flash_attention", "fused_ln_self_attention", "fused_ln_geglu_ff")
+NAMES = ("flash_attention", "fused_ln_self_attention", "fused_ln_geglu_ff", "group_norm_nhwc")
+
+
+def card_layouts(monkeypatch, counts) -> None:
+    """Convolutions return channels-last for a channels-last input, as cuDNN
+    does on the card, and the GroupNorm kernel's launcher is a counter that
+    holds each input to what the kernel takes (channels-last, its channels),
+    since on the card the module raises rather than fall back."""
+    conv = torch.nn.Conv2d._conv_forward
+
+    def conv_forward(self, x, weight, bias):
+        out = conv(self, x, weight, bias)
+        if x.is_contiguous(memory_format=torch.channels_last):
+            out = out.contiguous(memory_format=torch.channels_last)
+        return out
+
+    def group_norm_launch(x, weight, bias, groups, eps, silu, add=None, stats=True, pl=None):
+        assert group_norm.takes(x, groups), (tuple(x.shape), x.stride(), x.dtype)
+        counts["group_norm_nhwc"] += 1
+        stats = torch.empty((x.shape[0], groups), dtype=torch.float32, device=x.device)
+        return torch.empty_like(x, memory_format=torch.channels_last), stats, stats
+
+    monkeypatch.setattr(torch.nn.Conv2d, "_conv_forward", conv_forward)
+    monkeypatch.setattr(group_norm, "_group_norm_cuda", group_norm_launch)
 
 
 @pytest.fixture
@@ -39,6 +69,7 @@ def counters(monkeypatch):
     monkeypatch.setattr(attn, "flash_attention", stub("flash_attention"))
     monkeypatch.setattr(layers, "fused_ln_self_attention", stub("fused_ln_self_attention"))
     monkeypatch.setattr(layers, "fused_ln_geglu_ff", stub("fused_ln_geglu_ff"))
+    card_layouts(monkeypatch, counts)
     return counts
 
 
@@ -145,6 +176,7 @@ def kernel_counters(monkeypatch):
     monkeypatch.setattr(attn, "flash_attention_bwd_dkv", dkv)
     monkeypatch.setattr(fused_attn, "_fused_attn_cuda", block("fused_ln_self_attention"))
     monkeypatch.setattr(fused_ff, "_fused_ff_cuda", block("fused_ln_geglu_ff"))
+    card_layouts(monkeypatch, counts)
     return counts
 
 
